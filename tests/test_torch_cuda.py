@@ -1,0 +1,107 @@
+"""The port on a CUDA card: each walk kernel against its plain version,
+and the encode path against the CPU port.
+
+Marked ``cuda``; every test skips without a card. The file imports
+nothing of JAX, so on a machine without it run it past the JAX test
+configuration:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from bench import make_corpus
+from ulcx_torch.analysis.batched import analyze_block_batched
+from ulcx_torch.bitstream import encode_kernels as ek
+from ulcx_torch.bitstream import fast_encode as fe
+from ulcx_torch.codec.encoder import cbr_bit_budget, init_carry_batched, max_block_bytes
+from ulcx_torch.parallel.mesh import batch_encode
+from ulcx_torch.utils.config import CodecConfig
+
+pytestmark = pytest.mark.cuda
+
+N, C, B = 256, 2, 16
+CFG = CodecConfig(rate_hz=44100, n_chan=C, block_size=N)
+P = N * C
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the walk kernels have no CPU form")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _planes(dev):
+    """Walk planes of the second block of B corpus streams, with zero
+    and denormal coefficients in stream 1 and a silent stream 2, plus
+    candidate counts [B, 8] that include nn <= 0 and nn = P."""
+    x = torch.from_numpy(make_corpus(B, 2, N)).to(dev)
+    carry = init_carry_batched(CFG, B, dev)
+    for j in range(2):
+        carry, blk = analyze_block_batched(carry, x[:, j], CFG)
+    m = blk.mdct.clone().reshape(B, -1)
+    m[1, ::7] = 0.0
+    m[1, 3::11] = 1e-40
+    m[2] = 0.0
+    blk = blk._replace(mdct=m.reshape(blk.mdct.shape))
+    pl = fe.make_planes(fe.prepare_fast(blk, CFG))
+    rng = np.random.default_rng(3)
+    nn = rng.integers(1, P, (B, 8)).astype(np.int32)
+    nn[:, 0], nn[0, 1], nn[:, 7], nn[2, 6] = 0, -3, P, P - 1
+    return pl, torch.from_numpy(nn).to(dev)
+
+
+def _same(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.int32 and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+def test_kernels_match_plain(dev):
+    pl, nn = _planes(dev)
+    t, c = fe._tc_of(pl, nn)
+    ek.reset_launch_counts()
+    s12 = ek.p1(t, c, pl.key, pl.coef, pl.aux)
+    _same(s12, ek.p1_plain(t, c, pl.key, pl.coef, pl.aux))
+    state = ek.p2(t, c, pl.key, pl.thr, pl.aux, s12)
+    _same(state, ek.p2_plain(t, c, pl.key, pl.thr, pl.aux, s12))
+    _same(ek.p3_size(pl.thr, pl.aux, state), ek.p3_size_plain(pl.thr, pl.aux, state))
+    for n_words in (max_block_bytes(CFG) // 4, 6):  # 6: most streams overflow it
+        args = (pl.coef, pl.ampn, pl.hfamp, pl.hfmeta, pl.aux, state, pl.hdr, n_words)
+        got = ek.p3_materialize(*args)
+        _same(got, ek.p3_materialize_plain(*args))
+    assert (got[1] < 0).any()  # packed words use the register's top bit
+    torch.cuda.synchronize()
+    assert ek.launch_counts() == {"p1": 1, "p2": 1, "p3_size": 1, "p3_materialize": 2}
+
+
+def test_wrappers_refuse_mixed_devices_and_types(dev):
+    pl, nn = _planes(dev)
+    t, c = fe._tc_of(pl, nn)
+    with pytest.raises(ValueError, match="several devices"):
+        ek.p1(t.cpu(), c, pl.key, pl.coef, pl.aux)
+    with pytest.raises(TypeError):
+        ek.p1(t, c, pl.key, pl.coef.double(), pl.aux)
+    with pytest.raises(ValueError, match="contiguous"):
+        ek.p3_size(pl.thr.t().contiguous().t(), pl.aux, torch.zeros(P, B, 8, dtype=torch.int32,
+                                                                     device=dev))
+
+
+def test_encode_path_on_card_matches_cpu(dev):
+    x = torch.from_numpy(make_corpus(8, 2, N))
+    ek.reset_launch_counts()
+    got, _ = batch_encode(x.to(dev), CFG, "cbr", rate_kbps=128.0)
+    torch.cuda.synchronize()
+    assert ek.launch_counts() == {"p1": 6, "p2": 6, "p3_size": 4, "p3_materialize": 2}
+    want, _ = batch_encode(x, CFG, "cbr", rate_kbps=128.0)
+    assert torch.equal(got.window_ctrl.cpu(), want.window_ctrl)
+    assert int(got.size_bits.max()) <= int(cbr_bit_budget(CFG, 128.0))
+    # analysis floats round differently on the card: sizes within 1 %
+    g, w = int(got.size_bits.sum()), int(want.size_bits.sum())
+    assert abs(g - w) <= 0.01 * w

@@ -1,0 +1,156 @@
+"""The port's ops and static tables vs ulcx's.
+
+Inputs come from numpy seeds and go through both packages. Bit-level
+ops (fast_log, monotone_i32) and integer tables must be identical; the
+float32 matrix products (DCT-IV/DST-IV, EMA) may differ in summation
+order only, so they are held to 1e-5 of the block's largest magnitude.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from ulcx.bitstream import tables as jtables
+from ulcx.codec import transform as jtransform
+from ulcx.codec import transform_batched as jtb
+from ulcx.ops import dct as jdct
+from ulcx.ops import keys as jkeys
+from ulcx.ops import mdct as jmdct
+from ulcx.ops import patterns as jpatterns
+from ulcx.ops import scanutil as jscan
+from ulcx.ops.fastlog import fast_log as jfast_log
+from ulcx.utils.config import CodecConfig
+from ulcx_torch.bitstream import tables as ttables
+from ulcx_torch.codec import transform as ttransform
+from ulcx_torch.codec import transform_batched as ttb
+from ulcx_torch.ops import dct as tdct
+from ulcx_torch.ops import keys as tkeys
+from ulcx_torch.ops import mdct as tmdct
+from ulcx_torch.ops import patterns as tpatterns
+from ulcx_torch.ops import scanutil as tscan
+from ulcx_torch.ops.fastlog import fast_log as tfast_log
+
+# summation order of the f32 products differs between XLA and torch
+RTOL = 1e-5
+
+
+def _special_floats(rng):
+    """Random magnitudes over the whole f32 range plus the edge cases:
+    ±0, ±inf, NaNs of both signs and payloads, denormals, extremes."""
+    x = (rng.standard_normal(4000) * 10.0 ** rng.uniform(-40, 38, 4000)).astype(np.float32)
+    specials = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan, 1e-40, -1e-40,
+                         1e-45, 1.1754942e-38, 1.1754944e-38, 3.4028235e38, -3.4028235e38,
+                         1.0, 2.0, 0.5], np.float32)
+    payload_nans = np.array([0x7FC00001, 0xFFC00001, 0x7F800001], np.uint32).view(np.float32)
+    return np.concatenate([x, specials, payload_nans])
+
+
+def _rel_err(got, want):
+    return np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64)).max() / (
+        np.abs(np.asarray(want, np.float64)).max() + 1e-30)
+
+
+def test_fast_log_bit_exact():
+    """Positive finite inputs, denormals and zero: same bits as ulcx
+    (the polynomial is one rounded f32 operation at a time in both)."""
+    x = np.abs(_special_floats(np.random.default_rng(1)))
+    x = x[np.isfinite(x)]
+    want = np.asarray(jfast_log(jnp.asarray(x))).view(np.uint32)
+    got = tfast_log(torch.from_numpy(x)).numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_monotone_i32_bit_exact():
+    f = _special_floats(np.random.default_rng(2))
+    want = np.asarray(jkeys.monotone_i32(jnp.asarray(f)))
+    got = tkeys.monotone_i32(torch.from_numpy(f)).numpy()
+    np.testing.assert_array_equal(got, want)
+    # ±0 share a key, every NaN maps to INT32_MIN
+    assert got[f.view(np.uint32) == 0x80000000][0] == got[f.view(np.uint32) == 0][0]
+    assert (got[np.isnan(f)] == np.iinfo(np.int32).min).all()
+
+
+@pytest.mark.parametrize("n", [32, 256, 2048])
+def test_dct4_dst4_matches(n):
+    rng = np.random.default_rng(n)
+    xc = rng.standard_normal((3, n)).astype(np.float32)
+    xs = rng.standard_normal((3, n)).astype(np.float32)
+    jc, js = jdct.dct4_dst4(jnp.asarray(xc), jnp.asarray(xs), "matmul")
+    tc, ts = tdct.dct4_dst4(torch.from_numpy(xc), torch.from_numpy(xs), "matmul")
+    assert _rel_err(tc, jc) < RTOL
+    assert _rel_err(ts, js) < RTOL
+
+
+def test_unported_transform_backends_raise():
+    x = torch.zeros(2, 64)
+    for backend in ("fact", "fft"):
+        with pytest.raises(NotImplementedError, match="A.7"):
+            tdct.dct4(x, backend)
+
+
+def test_windows_and_folds_match():
+    rng = np.random.default_rng(3)
+    for s in (64, 256):
+        for o in (0, 8, s // 2, s):
+            want = np.asarray(jmdct.rise_window(s, jnp.int32(o)))
+            got = tmdct.rise_window(s, torch.tensor(o)).numpy()
+            # sin of the same f32 argument: libm and XLA may differ by an ulp
+            np.testing.assert_allclose(got, want, rtol=0, atol=2e-7)
+        z = rng.standard_normal((4, 2 * s)).astype(np.float32)
+        # the folds are sums of two samples: exact
+        np.testing.assert_array_equal(tmdct.mdct_fold(torch.from_numpy(z)).numpy(),
+                                      np.asarray(jmdct.mdct_fold(jnp.asarray(z))))
+        np.testing.assert_array_equal(tmdct.mdst_fold(torch.from_numpy(z)).numpy(),
+                                      np.asarray(jmdct.mdst_fold(jnp.asarray(z))))
+
+
+@pytest.mark.parametrize("n,chunk", [(256, None), (2048, None), (4096, 1024)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_ema_matches(n, chunk, reverse):
+    rng = np.random.default_rng(n)
+    v = (rng.standard_normal((2, n)) ** 2).astype(np.float32)
+    init = rng.uniform(0.0, 2.0, 2).astype(np.float32)
+    rate = float(np.exp(-115.0 / 44100.0))
+    if chunk is None:
+        want = jscan.ema_matmul(jnp.asarray(v), rate, jnp.asarray(init), reverse=reverse)
+        got = tscan.ema_matmul(torch.from_numpy(v), rate, torch.from_numpy(init), reverse=reverse)
+    else:
+        want = jscan.ema_matmul_chunked(jnp.asarray(v), rate, jnp.asarray(init),
+                                        reverse=reverse, chunk=chunk)
+        got = tscan.ema_matmul_chunked(torch.from_numpy(v), rate, torch.from_numpy(init),
+                                       reverse=reverse, chunk=chunk)
+    assert _rel_err(got, want) < RTOL
+
+
+@pytest.mark.parametrize("n", [256, 2048])
+def test_pattern_and_segment_tables_match(n):
+    assert list(tpatterns.PATTERN_TABLE) == list(jpatterns.PATTERN_TABLE)
+    for p in range(1, 16):
+        assert tpatterns.pattern_subblock_sizes(p, n) == jpatterns.pattern_subblock_sizes(p, n)
+        assert tpatterns.pattern_subblock_offsets(p, n) == jpatterns.pattern_subblock_offsets(p, n)
+        assert tpatterns.pattern_transient_flags(p) == jpatterns.pattern_transient_flags(p)
+    for got, want in zip(ttables.segment_tables(n, 2), jtables.segment_tables(n, 2)):
+        np.testing.assert_array_equal(got, want)
+    tt, jt = ttb.candidate_tables(n), jtb.candidate_tables(n)
+    for k in tt:
+        np.testing.assert_array_equal(tt[k], jt[k], err_msg=k)
+
+
+def test_overlap_lookups_match():
+    n = 2048
+    cfg = CodecConfig(rate_hz=44100, n_chan=2, block_size=n)
+    rng = np.random.default_rng(4)
+    wc = (rng.integers(0, 16, 64) << 4 | rng.integers(0, 16, 64)).astype(np.int32)
+    prev = rng.choice([256, 512, 1024, 2048], 64).astype(np.int32)
+    nxt = rng.choice([32, 128, 1024, 2048], 64).astype(np.int32)
+    wct = torch.from_numpy(wc)
+    np.testing.assert_array_equal(ttransform.first_overlap(wct, n).numpy(),
+                                  np.asarray(jtransform.first_overlap(jnp.asarray(wc), n)))
+    np.testing.assert_array_equal(ttransform.last_subblock_size(wct, n).numpy(),
+                                  np.asarray(jtransform.last_subblock_size(jnp.asarray(wc), n)))
+    want = jtb.boundary_overlaps_batched(jnp.asarray(wc), jnp.asarray(prev), jnp.asarray(nxt), cfg)
+    got = ttb.boundary_overlaps_batched(wct, torch.from_numpy(prev), torch.from_numpy(nxt), cfg)
+    assert ttb.candidate_list() == jtb.candidate_list()  # same candidate order
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

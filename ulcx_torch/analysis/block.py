@@ -1,0 +1,97 @@
+"""Encoder state, the analyzed-block record, and M/S.
+
+Port of the data types of ``ulcx.analysis.block`` with the stream batch
+written out: every leaf has a leading [B]. ``carry_from_numpy`` and
+``carry_to_numpy`` move an ``ulcx`` carry (its leaves as numpy arrays)
+into the port and back, so a stream begun in one package continues in
+the other with the same state.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ulcx_torch.analysis.window_control import TransientState
+from ulcx_torch.utils.config import CodecConfig
+
+_NEG_LOG4 = float(np.float32(-float.fromhex("0x1.62E430p0")))   # ln(0.25)
+_INV_LOG2E = float(np.float32(float.fromhex("0x1.62E430p-1")))  # 1/log2(e) = ln 2
+
+
+class EncoderCarry(NamedTuple):
+    """State carried block to block (reference ULC_EncoderState_t)."""
+
+    sample_prev: torch.Tensor       # [B, C, N] previous M/S'd block
+    transient: TransientState
+    next_window_ctrl: torch.Tensor  # [B] int32
+    prev_last_ss: torch.Tensor      # [B] int32
+
+    @staticmethod
+    def init(cfg: CodecConfig, batch: int, device=None):
+        return EncoderCarry(
+            sample_prev=torch.zeros(
+                batch, cfg.n_chan, cfg.block_size, dtype=torch.float32, device=device
+            ),
+            transient=TransientState.init(batch, device),
+            next_window_ctrl=torch.full((batch,), 0x10, dtype=torch.int32, device=device),
+            prev_last_ss=torch.full((batch,), cfg.block_size, dtype=torch.int32, device=device),
+        )
+
+
+class AnalyzedBlock(NamedTuple):
+    window_ctrl: torch.Tensor   # [B] int32 (for this coded block)
+    mdct: torch.Tensor          # [B, C, N] normalized coefficients
+    noise: torch.Tensor         # [B, C, N] interleaved {w, w*y} noise pairs
+    importance: torch.Tensor    # [B, C, N] f32 masked importance (rank key)
+    complexity: torch.Tensor    # [B] f32
+    n_nz: torch.Tensor          # [B] int32 (codeable coefficient count)
+
+
+def carry_from_numpy(carry, device=None) -> EncoderCarry:
+    """An ``ulcx`` EncoderCarry with batched numpy leaves -> the port's
+    carry on ``device``. Fields are read by name."""
+
+    def conv(x, dtype=torch.float32):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+    ts = carry.transient
+    return EncoderCarry(
+        sample_prev=conv(carry.sample_prev),
+        transient=TransientState(*(conv(getattr(ts, f)) for f in TransientState._fields)),
+        next_window_ctrl=conv(carry.next_window_ctrl, torch.int32),
+        prev_last_ss=conv(carry.prev_last_ss, torch.int32),
+    )
+
+
+def carry_to_numpy(carry: EncoderCarry) -> EncoderCarry:
+    """The port's carry -> the same structure with numpy leaves, field
+    for field what ``ulcx``'s batched carry holds."""
+
+    def conv(x):
+        return x.detach().cpu().numpy()
+
+    return EncoderCarry(
+        sample_prev=conv(carry.sample_prev),
+        transient=TransientState(*(conv(x) for x in carry.transient)),
+        next_window_ctrl=conv(carry.next_window_ctrl),
+        prev_last_ss=conv(carry.prev_last_ss),
+    )
+
+
+def ms_transform(block: torch.Tensor) -> torch.Tensor:
+    """Pairwise M/S on [..., C, N]: (a, b) -> ((a+b)/2, (a-b)/2); an odd
+    last channel is untouched (reference ulcEncoder_BlockTransform.c:100-110)."""
+    c = block.shape[-2]
+    if c < 2:
+        return block
+    npair = c // 2
+    pairs = block[..., : 2 * npair, :].reshape(block.shape[:-2] + (npair, 2, block.shape[-1]))
+    mid = (pairs[..., 0, :] + pairs[..., 1, :]) * 0.5
+    side = (pairs[..., 0, :] - pairs[..., 1, :]) * 0.5
+    out = torch.stack([mid, side], dim=-2).reshape(block.shape[:-2] + (2 * npair, block.shape[-1]))
+    if c > 2 * npair:
+        out = torch.cat([out, block[..., 2 * npair :, :]], dim=-2)
+    return out

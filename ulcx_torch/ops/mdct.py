@@ -1,0 +1,51 @@
+"""Sine windows and the MDCT/MDST folds (forward half of ``ulcx.ops.mdct``).
+
+Reduction (see ``ulcx.ops.mdct`` for the derivation from the
+bitstream's IMDCT basis):
+
+  forward:  u = fold(window * frame2N);  X = -(2/N) * dct4(u)
+
+with fold(z) = concat(-rev(z[N:3N/2]) - z[3N/2:], z[:N/2] - rev(z[N/2:N])).
+The inverse functions belong to the decode slice and are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def rise_window(length: int, overlap: torch.Tensor) -> torch.Tensor:
+    """Window halves rising around their centre: overlap [...] (integer
+    tensor, a power of two or 0) -> [..., length] f32. Zero before the
+    transition, a sine rise over ``overlap`` samples, one after."""
+    o = overlap.to(torch.float32)[..., None]
+    j = torch.arange(length, dtype=torch.float32, device=overlap.device)
+    start = length / 2 - o / 2
+    t = (j - start + 0.5) / o
+    w = torch.sin(math.pi / 2 * torch.clamp(t, 0.0, 1.0))
+    one = torch.ones_like(w)
+    return torch.where(j < start, torch.zeros_like(w), torch.where(j >= start + o, one, w))
+
+
+def _quarters(z: torch.Tensor):
+    s = z.shape[-1] // 2
+    h = s // 2
+    zc = z[..., s : s + h].flip(-1)   # rev(z[S:3S/2])
+    zd = z[..., s + h :]              # z[3S/2:2S]
+    za = z[..., :h]                   # z[:S/2]
+    zb = z[..., h:s].flip(-1)         # rev(z[S/2:S])
+    return za, zb, zc, zd
+
+
+def mdct_fold(z: torch.Tensor) -> torch.Tensor:
+    """[..., 2S] windowed frame -> [..., S] DCT-IV input."""
+    za, zb, zc, zd = _quarters(z)
+    return torch.cat([-zc - zd, za - zb], dim=-1)
+
+
+def mdst_fold(z: torch.Tensor) -> torch.Tensor:
+    """[..., 2S] windowed frame -> [..., S] DST-IV input."""
+    za, zb, zc, zd = _quarters(z)
+    return torch.cat([zc - zd, za + zb], dim=-1)
