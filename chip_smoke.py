@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's batched encode path on one CUDA card.
+"""Drive the PyTorch port's batched encode and decode paths on one CUDA card.
 
     python3 chip_smoke.py        # from the repo root; one CUDA GPU, nvcc on the machine
 
 Phases, each of which raises on failure:
 
 1. device: require CUDA, turn TF32 off, print the card's name and power limit;
-2. build the four encode-walk kernels from ``ulcx_torch/csrc``;
+2. build the four encode-walk and three decode kernels from
+   ``ulcx_torch/csrc`` (one nvcc call);
 3. kernels vs plain: one block step's walk planes at the flagship shape
    (stereo bs2048, P=4096, from ``bench.make_corpus``), at B=128 and at
    the main path's B=512, go through each kernel and its plain PyTorch
@@ -16,10 +17,21 @@ Phases, each of which raises on failure:
    block within its budget, the launch counters exactly T x (3, 3, 2, 1),
    a second run byte-identical; prints the encode realtime factor;
 5. CUDA vs CPU: B=8, T=2 through the same path on the CPU (the plain
-   walks); window control and coded counts exact, total size within 1 %.
+   walks); window control and coded counts exact, total size within 1 %;
+6. decode kernels vs plain: phase 4's bytes packed into streams as
+   bench.py packs them, windows of the first and of a later block at the
+   bench's window size, at B=128 and B=512; each decode kernel's outputs
+   identical to its plain version's (coefficients as bits), both timed;
+7. decode main path: ``batch_decode`` of those streams at B=512, T=8 on
+   the card; no corrupt block, every block's bits rounded up to bytes
+   equal to its encoded size, the launch counters exactly T x (1, 1, 0),
+   a second run bit-identical; prints the decode realtime factor and the
+   round-trip SNR;
+8. decode CUDA vs CPU: the first 8 streams, 2 blocks, on the CPU port;
+   bits and corrupt exact, PCM within 1e-5 RMS.
 
 The second-to-last line is a JSON object with each kernel's launches on
-the main path, its largest difference from the plain version and both
+its main path, its largest difference from the plain version and both
 times at the main path's B=512; the last is ``{"ok": true, "device": {...}}``. The script exits
 non-zero, printing neither, when there is no CUDA device or any phase
 fails. It imports nothing of JAX.
@@ -42,14 +54,23 @@ MAIN_B, MAIN_T = 512, 8
 CPU_B, CPU_T = 8, 2
 WARMUP_LAUNCHES, TIMED_LAUNCHES = 10, 50  # warm-up lets the clocks ramp after the plain run
 WARM_RUNS = 3
+DEC_CPU_B, DEC_CPU_T = 8, 2
+LATER_BLOCK = 5  # phase 6's second window
+PCM_RMS = 1e-5  # card vs CPU: float32 matrix products sum in another order
+MIN_SNR_DB = 12.0  # the corpus round-trips at ~16.5 dB at CBR-128; far below means broken
 SOURCE = "ulcx_torch/csrc/encode_walks.cu"
+DEC_SOURCE = "ulcx_torch/csrc/decode_walks.cu"
 REPLACES = {
     "p1": "ulcx/bitstream/pallas_encode3.py:124",
     "p2": "ulcx/bitstream/pallas_encode3.py:186",
     "p3_size": "ulcx/bitstream/pallas_encode3.py:254",
     "p3_materialize": "ulcx/bitstream/pallas_encode3.py:254",
+    "fsm": "ulcx/bitstream/pallas_decode.py:99",
+    "rng_expand": "ulcx/bitstream/pallas_decode.py:393",
+    "rng": "ulcx/bitstream/pallas_decode.py:346",
 }
 PER_BLOCK = {"p1": 3, "p2": 3, "p3_size": 2, "p3_materialize": 1}
+DEC_PER_BLOCK = {"fsm": 1, "rng_expand": 1, "rng": 0}
 
 
 def phase(name):
@@ -109,15 +130,6 @@ def kernels_vs_plain(cfg, x, device):
         ),
     }
 
-    def timed(fn, args, reps):
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            out = fn(*args)
-        stop.record()
-        torch.cuda.synchronize()
-        return out, start.elapsed_time(stop) / reps
-
     results = {}
     s12 = state = None
     for name, (kernel, plain, make_args) in calls.items():
@@ -142,6 +154,20 @@ def kernels_vs_plain(cfg, x, device):
         elif name == "p2":
             state = got[0]
     return results
+
+
+def timed(fn, args, reps):
+    """(last output, ms per call) over ``reps`` back-to-back calls,
+    timed with CUDA events."""
+    import torch
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn(*args)
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop) / reps
 
 
 def check_encoded(sizes, data, b, t, cfg, label):
@@ -192,7 +218,7 @@ def main_path(cfg, x, device):
             raise AssertionError("a second run gave other bytes")
     print(f"encode B={b} T={t}: cold {cold:.3f} s, warm {', '.join(f'{w:.3f}' for w in warm)} s, "
           f"total {int(stats['total_bits'])} bits", flush=True)
-    return counts, warm, b * t * cfg.block_size / cfg.rate_hz
+    return counts, warm, b * t * cfg.block_size / cfg.rate_hz, out
 
 
 def cuda_vs_cpu(cfg, x, devices=("cuda", "cpu")):
@@ -220,6 +246,154 @@ def cuda_vs_cpu(cfg, x, devices=("cuda", "cpu")):
     print(f"cuda vs cpu B={x.shape[0]} T={x.shape[1]}: window_ctrl and n_nz equal, total bits "
           f"{tot_g} vs {tot_c} ({rel:.4%}), {same}/{x.shape[0] * x.shape[1]} blocks "
           f"byte-identical", flush=True)
+
+
+def pack_streams(out):
+    """Encoded blocks [B, T] -> (streams [B, S] uint8, block byte offsets
+    [B, T], window bytes, size_bits [B, T]), all on the CPU, as
+    bench.py:240-247 packs them: the window is the largest block rounded
+    up to 64 bytes, plus 64."""
+    import numpy as np
+    import torch
+
+    sizes, datas = out.size_bits.cpu().numpy(), out.data.cpu().numpy()
+    b, t = sizes.shape
+    win = -(-int(sizes.max() // 8) // 64) * 64 + 64
+    streams = np.zeros((b, t * win + win + 64), np.uint8)
+    offs = np.zeros((b, t), np.int64)
+    for i in range(b):
+        off = 0
+        for j in range(t):
+            nb = int(sizes[i, j]) // 8
+            offs[i, j] = off
+            streams[i, off : off + nb] = datas[i, j, :nb]
+            off += nb
+    return torch.from_numpy(streams), torch.from_numpy(offs), win, torch.from_numpy(sizes)
+
+
+def decode_kernels_vs_plain(cfg, streams, offs, win, device):
+    """Phase 6: each decode kernel against its plain version on the
+    windows of blocks 0 and LATER_BLOCK; returns {name: (max_abs_err,
+    kernel ms, plain ms)} for block 0."""
+    import numpy as np
+    import torch
+
+    from ulcx_torch.bitstream import decode_kernels as dk
+    from ulcx_torch.bitstream import fast_decode as fd
+
+    p_tot = cfg.n_chan * cfg.block_size
+    results = {}
+    for blk in (0, LATER_BLOCK):
+        windows = torch.gather(streams, 1, offs[:, blk : blk + 1] + torch.arange(win)).to(device)
+        wc, _, tokens = fd._header_and_tokens(windows)
+        b = windows.shape[0]
+        rng = np.random.default_rng(blk)
+        seed = rng.integers(0, 2**32, b, dtype=np.uint64).astype(np.uint32)
+        seed[1::2] |= np.uint32(1 << 31)
+        seed = torch.from_numpy(seed.view(np.int32)).to(device)
+        rec, code, _, corrupt = dk.fsm(wc, tokens, p_tot, cfg.block_size)
+        if bool(corrupt.any()):
+            raise AssertionError(f"block {blk}: {int(corrupt.sum())} windows decode as corrupt")
+        flags = fd._place(rec, code, p_tot)
+        calls = {
+            "fsm": (dk.fsm, dk.fsm_plain, (wc, tokens, p_tot, cfg.block_size)),
+            "rng_expand": (dk.rng_expand, dk.rng_expand_plain, (flags, seed)),
+            "rng": (dk.rng, dk.rng_plain, (dk.rng_flags(flags), seed)),
+        }
+        for name, (kernel, plain, args) in calls.items():
+            want, plain_ms = timed(plain, args, 1)
+            for _ in range(WARMUP_LAUNCHES):
+                kernel(*args)
+            got, ms = timed(kernel, args, TIMED_LAUNCHES)
+            err = 0.0
+            for w, g in zip(want, got):
+                if w.shape != g.shape or w.dtype != g.dtype:
+                    raise AssertionError(f"{name}: {g.shape} {g.dtype} vs plain {w.shape} {w.dtype}")
+                if g.dtype == torch.float32:
+                    err = max(err, float((g - w).abs().max()))
+                    same = torch.equal(g.view(torch.int32), w.view(torch.int32))
+                else:
+                    same = torch.equal(g, w)
+                if not same:
+                    raise AssertionError(f"{name} (block {blk}): kernel differs from its plain "
+                                         f"version (max abs err {err})")
+            if blk == 0:
+                results[name] = (err, ms, plain_ms)
+            print(f"{name} block {blk}: identical to plain (bits); kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.1f} ms", flush=True)
+    return results
+
+
+def decode_snr(x, pcm):
+    """Round-trip SNR in dB of decoded block t against input block t-1,
+    over blocks 1..T-1 (the codec delays by one block)."""
+    import numpy as np
+
+    want = x[:, : pcm.shape[1] - 1].astype(np.float64)
+    err = pcm[:, 1:].astype(np.float64) - want
+    return 10 * np.log10((want ** 2).sum() / (err ** 2).sum())
+
+
+def decode_main_path(cfg, x, streams, win, sizes, device):
+    """Phase 7: returns (launch counts, warm seconds of each repeat,
+    seconds of audio)."""
+    import torch
+
+    from ulcx_torch.bitstream import decode_kernels as dk
+    from ulcx_torch.parallel.mesh import batch_decode
+
+    b, t = sizes.shape
+    s_dev = streams.to(device)
+    dk.reset_launch_counts()
+    t0 = time.perf_counter()
+    pcm, bits, corrupt = batch_decode(s_dev, t, win, cfg)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    counts = dk.launch_counts()
+    want = {k: t * v for k, v in DEC_PER_BLOCK.items()}
+    if counts != want:
+        raise AssertionError(f"decode launch counts {counts}, expected {want}")
+    if bool(corrupt.any()):
+        raise AssertionError(f"{int(corrupt.sum())} blocks decode as corrupt")
+    if not torch.equal(((bits + 7) // 8 * 8).cpu(), sizes):
+        raise AssertionError("decoded bits, rounded up to bytes, differ from the encoded sizes")
+    if tuple(pcm.shape) != (b, t, cfg.n_chan, cfg.block_size) or not bool(torch.isfinite(pcm).all()):
+        raise AssertionError(f"pcm {tuple(pcm.shape)} not finite or of the wrong shape")
+    warm = []
+    for _ in range(WARM_RUNS):
+        t0 = time.perf_counter()
+        again = batch_decode(s_dev, t, win, cfg)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        if not all(torch.equal(u, v) for u, v in zip((pcm, bits, corrupt), again)):
+            raise AssertionError("a second decode gave other results")
+    snr = decode_snr(x, pcm.cpu().numpy())
+    if not snr > MIN_SNR_DB:
+        raise AssertionError(f"round-trip SNR {snr:.2f} dB, expected above {MIN_SNR_DB} dB")
+    print(f"decode B={b} T={t} window {win} bytes: cold {cold:.3f} s, warm "
+          f"{', '.join(f'{w:.3f}' for w in warm)} s, round-trip SNR {snr:.2f} dB", flush=True)
+    return counts, warm, b * t * cfg.block_size / cfg.rate_hz
+
+
+def decode_cuda_vs_cpu(cfg, streams, win, devices=("cuda", "cpu")):
+    """Phase 8: the first streams and blocks through the CPU port (plain
+    kernels) against the card."""
+    import torch
+
+    from ulcx_torch.parallel.mesh import batch_decode
+
+    res = {dev: [y.cpu() for y in batch_decode(streams[:DEC_CPU_B].to(dev), DEC_CPU_T, win, cfg)]
+           for dev in devices}
+    (pcm_g, bits_g, corrupt_g), (pcm_c, bits_c, corrupt_c) = (res[d] for d in devices)
+    if not (torch.equal(bits_g, bits_c) and torch.equal(corrupt_g, corrupt_c)):
+        raise AssertionError(f"bits or corrupt differ:\n{bits_g}\n{bits_c}")
+    if bool(corrupt_c.any()):
+        raise AssertionError("the CPU port decodes corrupt blocks")
+    rms = float(torch.sqrt(torch.mean((pcm_g - pcm_c) ** 2)))
+    if rms > PCM_RMS:
+        raise AssertionError(f"pcm differs by {rms:.3g} RMS (limit {PCM_RMS})")
+    print(f"decode cuda vs cpu B={DEC_CPU_B} T={DEC_CPU_T}: bits and corrupt equal, pcm "
+          f"{rms:.3g} RMS apart", flush=True)
 
 
 def main() -> int:
@@ -265,7 +439,7 @@ def main() -> int:
         kres[b] = kernels_vs_plain(cfg, x[:b, :2].copy(), "cuda")
 
     phase("4 main path")
-    counts, warm, audio_s = main_path(cfg, x, "cuda")
+    counts, warm, audio_s, encoded = main_path(cfg, x, "cuda")
     med = sorted(warm)[len(warm) // 2]
     print(f"realtime factor {audio_s / med:.1f}x (median of {len(warm)}: {audio_s:.1f} s of audio "
           f"in {med:.3f} s), launches {counts} [{card}]", flush=True)
@@ -273,11 +447,32 @@ def main() -> int:
     phase("5 cuda vs cpu")
     cuda_vs_cpu(cfg, x[:CPU_B, :CPU_T].copy())
 
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": counts[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        for name, (err, ms, plain_ms) in kres[MAIN_B].items()
-    ]}), flush=True)
+    streams, offs, win, sizes = pack_streams(encoded)
+    phase("6 decode kernels vs plain")
+    dres = {}
+    for b in (KERNEL_B, MAIN_B):
+        print(f"B={b}, P={2 * BS}, window {win} bytes ({2 * win - 2} tokens):", flush=True)
+        dres[b] = decode_kernels_vs_plain(cfg, streams[:b], offs[:b], win, "cuda")
+
+    phase("7 decode main path")
+    dcounts, dwarm, audio_s = decode_main_path(cfg, x, streams, win, sizes, "cuda")
+    med = sorted(dwarm)[len(dwarm) // 2]
+    print(f"decode realtime factor {audio_s / med:.1f}x (median of {len(dwarm)}: {audio_s:.1f} s "
+          f"of audio in {med:.3f} s), launches {dcounts} [{card}]", flush=True)
+
+    phase("8 decode cuda vs cpu")
+    decode_cuda_vs_cpu(cfg, streams, win)
+
+    rows = [(name, SOURCE, counts[name], v) for name, v in kres[MAIN_B].items()]
+    rows += [(name, DEC_SOURCE, dcounts[name], v) for name, v in dres[MAIN_B].items()]
+    kernels = []
+    for name, source, launches, (err, ms, plain_ms) in rows:
+        row = {"name": name, "route": "cuda", "source": source, "replaces": REPLACES[name],
+               "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        if name == "rng":
+            row["note"] = "not on a main path: held against its plain version only"
+        kernels.append(row)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

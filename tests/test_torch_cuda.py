@@ -1,5 +1,5 @@
 """The port on a CUDA card: each walk kernel against its plain version,
-and the encode path against the CPU port.
+and the encode and decode paths against the CPU port.
 
 Marked ``cuda``; every test skips without a card. The file imports
 nothing of JAX, so on a machine without it run it past the JAX test
@@ -13,11 +13,14 @@ import pytest
 import torch
 
 from bench import make_corpus
+from chip_smoke import pack_streams
 from ulcx_torch.analysis.batched import analyze_block_batched
+from ulcx_torch.bitstream import decode_kernels as dk
 from ulcx_torch.bitstream import encode_kernels as ek
+from ulcx_torch.bitstream import fast_decode as fd
 from ulcx_torch.bitstream import fast_encode as fe
 from ulcx_torch.codec.encoder import cbr_bit_budget, init_carry_batched, max_block_bytes
-from ulcx_torch.parallel.mesh import batch_encode
+from ulcx_torch.parallel.mesh import batch_decode, batch_encode
 from ulcx_torch.utils.config import CodecConfig
 
 pytestmark = pytest.mark.cuda
@@ -105,3 +108,52 @@ def test_encode_path_on_card_matches_cpu(dev):
     # analysis floats round differently on the card: sizes within 1 %
     g, w = int(got.size_bits.sum()), int(want.size_bits.sum())
     assert abs(g - w) <= 0.01 * w
+
+
+def _streams(x, cfg):
+    """The CPU port's CBR-128 encode of x [B, T, C, N], packed into
+    streams as chip_smoke.py packs them: (streams, window bytes, sizes)."""
+    out, _ = batch_encode(torch.from_numpy(x), cfg, "cbr", rate_kbps=128.0)
+    streams, _, win, sizes = pack_streams(out)
+    return streams, win, sizes
+
+
+def test_decode_kernels_match_plain(dev):
+    """FSM, RNG-expand and RNG on the card against their plain versions,
+    on the first and last block windows of corpus streams, with garbage
+    windows and seeds that have bit 31 set."""
+    streams, win, sizes = _streams(make_corpus(B, 3, N), CFG)
+    off = (sizes[:, :2] // 8).sum(1)
+    last = torch.gather(streams, 1, off[:, None] + torch.arange(win))
+    garbage = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (4, win), dtype=np.uint8))
+    windows = torch.cat([streams[:, :win], last, garbage]).to(dev)
+    wc, _, tokens = fd._header_and_tokens(windows)
+    dk.reset_launch_counts()
+    got = dk.fsm(wc, tokens, P, N)
+    for g, w in zip(got, dk.fsm_plain(wc, tokens, P, N)):
+        assert torch.equal(g, w)
+    flags = fd._place(got[0], got[1], P)
+    seed = torch.from_numpy(np.random.default_rng(5).integers(0, 2**32, flags.shape[1],
+                                                             dtype=np.uint64).astype(np.uint32)
+                            .view(np.int32)).to(dev)
+    (coef, s1), (coef_p, s1_p) = dk.rng_expand(flags, seed), dk.rng_expand_plain(flags, seed)
+    assert torch.equal(coef.view(torch.int32), coef_p.view(torch.int32)) and torch.equal(s1, s1_p)
+    rflags = dk.rng_flags(flags)
+    (sign, s2), (sign_p, s2_p) = dk.rng(rflags, seed), dk.rng_plain(rflags, seed)
+    assert torch.equal(sign, sign_p) and torch.equal(s2, s2_p) and torch.equal(s1, s2)
+    torch.cuda.synchronize()
+    assert dk.launch_counts() == {"fsm": 1, "rng_expand": 1, "rng": 1}
+
+
+def test_decode_path_on_card_matches_cpu(dev):
+    t = 3
+    streams, win, sizes = _streams(make_corpus(8, t, N), CFG)
+    dk.reset_launch_counts()
+    pcm, bits, corrupt = batch_decode(streams.to(dev), t, win, CFG)
+    torch.cuda.synchronize()
+    assert dk.launch_counts() == {"fsm": t, "rng_expand": t, "rng": 0}
+    pcm_c, bits_c, corrupt_c = batch_decode(streams, t, win, CFG)
+    assert torch.equal(bits.cpu(), bits_c) and torch.equal(corrupt.cpu(), corrupt_c)
+    assert not corrupt_c.any() and torch.equal((bits_c + 7) // 8 * 8, sizes)
+    # the card's float32 matrix products sum in another order
+    assert float(torch.sqrt(torch.mean((pcm.cpu() - pcm_c) ** 2))) <= 1e-5

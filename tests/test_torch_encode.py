@@ -6,7 +6,8 @@ ulcx (kernels in interpret mode) and by the port on the CPU, in CBR-128,
 ABR and VBR. Decisions must agree exactly (window control, coded
 counts); bytes may differ where the two packages' float rounding flips
 a near-tie, so sizes are held to 1 % in total and quality to 0.3 dB of
-round-trip SNR, both decoded by ulcx's own decoder.
+round-trip SNR, both decoded by the port's decoder (itself held to
+ulcx's decoder by tests/test_torch_decode.py).
 """
 
 import numpy as np
@@ -20,7 +21,6 @@ from bench import make_corpus
 from ulcx.analysis.batched import analyze_block_batched as j_analyze
 from ulcx.codec.encoder import encode_stream_batched as j_encode_stream
 from ulcx.codec.encoder import init_carry_batched as j_init
-from ulcx.parallel.mesh import batch_decode
 from ulcx.parallel.mesh import batch_encode as j_batch_encode
 from ulcx.utils.config import CodecConfig
 from ulcx_torch.analysis.batched import analyze_block_batched as t_analyze
@@ -28,6 +28,7 @@ from ulcx_torch.analysis.block import carry_from_numpy
 from ulcx_torch.codec.encoder import encode_stream_batched as t_encode_stream
 from ulcx_torch.codec.encoder import init_carry_batched as t_init
 from ulcx_torch.codec.encoder import max_block_bytes
+from ulcx_torch.parallel.mesh import batch_decode
 from ulcx_torch.parallel.mesh import batch_encode as t_batch_encode
 
 N, C, T = 256, 2, 3
@@ -66,7 +67,7 @@ def _n_nz_port(x, carry=None):
 
 
 def _decode_snr(x, sizes, data):
-    """ulcx's batch_decode of [B, T] blocks; returns (corrupt flags,
+    """The port's batch_decode of [B, T] blocks; returns (corrupt flags,
     SNR in dB of decoded block t against input block t-1)."""
     b, t = sizes.shape
     win = max_block_bytes(CFG)
@@ -77,10 +78,10 @@ def _decode_snr(x, sizes, data):
             nb = int(sizes[i, j]) // 8
             streams[i, off: off + nb] = data[i, j, :nb]
             off += nb
-    pcm, _, corrupt = jax.jit(lambda s: batch_decode(s, t, win, CFG))(jnp.asarray(streams))
+    pcm, _, corrupt = batch_decode(torch.from_numpy(streams), t, win, CFG)
     want = x[:, : t - 1]
-    err = np.asarray(pcm)[:, 1:] - want
-    return np.asarray(corrupt), 10 * np.log10((want ** 2).sum() / (err ** 2).sum())
+    err = pcm.numpy()[:, 1:] - want
+    return corrupt.numpy(), 10 * np.log10((want ** 2).sum() / (err ** 2).sum())
 
 
 @pytest.fixture(scope="module")

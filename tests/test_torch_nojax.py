@@ -1,7 +1,7 @@
 """The port runs where JAX is not installed.
 
 A fresh interpreter makes ``import jax`` fail, imports every module of
-``ulcx_torch`` and encodes a tiny batch on the CPU.
+``ulcx_torch``, encodes a tiny batch on the CPU and decodes it again.
 """
 
 import os
@@ -17,12 +17,19 @@ import numpy as np, torch
 import ulcx_torch
 for mod in pkgutil.walk_packages(ulcx_torch.__path__, "ulcx_torch."):
     __import__(mod.name)
-from ulcx_torch.parallel.mesh import batch_encode
+from ulcx_torch.parallel.mesh import batch_decode, batch_encode
 from ulcx_torch.utils.config import CodecConfig
 cfg = CodecConfig(rate_hz=44100, n_chan=2, block_size=256)
-x = np.random.default_rng(0).standard_normal((2, 1, 2, 256)).astype(np.float32) * 0.3
+x = np.random.default_rng(0).standard_normal((2, 2, 2, 256)).astype(np.float32) * 0.3
 out, stats = batch_encode(torch.from_numpy(x), cfg, "cbr", rate_kbps=128.0)
-assert out.data.shape == (2, 1, 1024) and (out.size_bits > 0).all()
+assert out.data.shape == (2, 2, 1024) and (out.size_bits > 0).all()
+streams = torch.zeros(2, 3 * 1024 + 64, dtype=torch.uint8)
+for i in range(2):
+    nb = (out.size_bits[i] // 8).tolist()
+    streams[i, : sum(nb)] = torch.cat([out.data[i, j, : nb[j]] for j in range(2)])
+pcm, bits, corrupt = batch_decode(streams, 2, 1024, cfg)
+assert pcm.shape == (2, 2, 2, 256) and not corrupt.any()
+assert torch.equal((bits + 7) // 8 * 8, out.size_bits)
 assert sys.modules["jax"] is None
 print("ok", int(stats["total_bits"]))
 """

@@ -18,6 +18,7 @@ from ulcx.ops import dct as jdct
 from ulcx.ops import keys as jkeys
 from ulcx.ops import mdct as jmdct
 from ulcx.ops import patterns as jpatterns
+from ulcx.ops import quant as jquant
 from ulcx.ops import scanutil as jscan
 from ulcx.ops.fastlog import fast_log as jfast_log
 from ulcx.utils.config import CodecConfig
@@ -28,6 +29,7 @@ from ulcx_torch.ops import dct as tdct
 from ulcx_torch.ops import keys as tkeys
 from ulcx_torch.ops import mdct as tmdct
 from ulcx_torch.ops import patterns as tpatterns
+from ulcx_torch.ops import quant as tquant
 from ulcx_torch.ops import scanutil as tscan
 from ulcx_torch.ops.fastlog import fast_log as tfast_log
 
@@ -154,3 +156,50 @@ def test_overlap_lookups_match():
     assert ttb.candidate_list() == jtb.candidate_list()  # same candidate order
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_expand_quantizer_bit_exact():
+    """Every qi in 0..31, the qi > 26 -> 0 corner included: exact products."""
+    qi = np.arange(32, dtype=np.int32)
+    want = np.asarray(jquant.expand_quantizer(jnp.asarray(qi)))
+    got = tquant.expand_quantizer(torch.from_numpy(qi)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert (got[27:] == 0).all() and got[0] == 2.0**-5
+
+
+@pytest.mark.parametrize("fn", ["unsigned", "signed", "coef"])
+def test_companded_quantize_bit_exact(fn):
+    """Values scaled by every quantizer 2^(5+qi), qi in 0..31, at and one
+    ulp around the rounding boundaries (q - 1/2)^2 + 1/4, and saturating
+    values: one correctly rounded sqrt per value on both sides."""
+    rng = np.random.default_rng(9)
+    q = np.arange(0, 40, dtype=np.float32)
+    edges = ((q - 0.5) ** 2 + 0.25).astype(np.float32)
+    near = np.concatenate([edges, np.nextafter(edges, 0), np.nextafter(edges, np.inf)])
+    coef = (rng.standard_normal(2000) * 10.0 ** rng.uniform(-4, 0, 2000)).astype(np.float32)
+    scaled = np.concatenate([(coef[:, None] * 2.0 ** (5 + np.arange(32))).ravel().astype(np.float32),
+                             near, -near, np.array([0.0, -0.0, 0.5, 0.25, 3e38, np.inf], np.float32)])
+    if fn == "unsigned":
+        v = np.abs(scaled)
+        want = jquant.companded_quantize_unsigned(jnp.asarray(v))
+        got = tquant.companded_quantize_unsigned(torch.from_numpy(v))
+    elif fn == "signed":
+        want = jquant.companded_quantize(jnp.asarray(scaled))
+        got = tquant.companded_quantize(torch.from_numpy(scaled))
+    else:
+        want = jquant.companded_quantize_coef(jnp.asarray(scaled), 7)
+        got = tquant.companded_quantize_coef(torch.from_numpy(scaled), 7)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("n", [32, 256])
+def test_imdct_matches(n):
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((3, n)).astype(np.float32)
+    v_want = np.asarray(jmdct.imdct_halfspec(jnp.asarray(x), "matmul"))
+    v_got = tmdct.imdct_halfspec(torch.from_numpy(x), "matmul").numpy()
+    assert _rel_err(v_got, v_want) < RTOL
+    # the expansion only moves and negates values: exact
+    np.testing.assert_array_equal(tmdct.imdct_expand(torch.from_numpy(v_want)).numpy(),
+                                  np.asarray(jmdct.imdct_expand(jnp.asarray(v_want))))

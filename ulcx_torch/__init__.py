@@ -4,12 +4,17 @@ A second implementation of the ``ulcx`` package for one NVIDIA Hopper
 GPU. ``ulcx`` (JAX/Pallas) stays the reference; each module here
 mirrors the module of the same name there and is tested against it.
 
-This slice is the batched encode path: ``parallel.mesh.batch_encode``
--> ``codec.encoder.encode_stream_batched`` -> per-block analysis ->
-``bitstream.fast_encode`` rate search and materialization, whose four
-serial walks are CUDA C++ kernels (``csrc/encode_walks.cu``). Every
-function follows the device of its input tensors: on the CPU the walks
-run their plain PyTorch versions, on a CUDA device the kernels.
+Ported so far are the batched encode and decode paths.
+``parallel.mesh.batch_encode`` -> ``codec.encoder.encode_stream_batched``
+-> per-block analysis -> ``bitstream.fast_encode`` rate search and
+materialization, whose four serial walks are CUDA C++ kernels
+(``csrc/encode_walks.cu``). ``parallel.mesh.batch_decode`` ->
+``codec.decoder.decode_stream_batched`` -> per block
+``bitstream.fast_decode.decode_block_fast`` (FSM kernel, record
+scatter, RNG-expand kernel; ``csrc/decode_walks.cu``) ->
+``codec.transform_batched.block_imdct_batched`` -> inverse M/S. Every
+function follows the device of its input tensors: on the CPU the
+kernels run their plain PyTorch versions, on a CUDA device the kernels.
 
 Nothing here imports jax; the one ``ulcx`` module reused is the
 jax-free ``ulcx.utils.config``.

@@ -1,11 +1,16 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels.
 
-``csrc/encode_walks.cu`` has a plain C interface, so it is compiled by
-``nvcc`` alone into a shared library and loaded with ctypes: no PyTorch
-headers, a build of seconds. The library goes to ``build/ulcx_torch/``
-beside the package, named by a hash of the source and flags, so a
-changed source is rebuilt at its first use and an unchanged one is
-loaded as it is. Nothing is built when the module is imported.
+``csrc/encode_walks.cu`` and ``csrc/decode_walks.cu`` have a plain C
+interface, so one ``nvcc`` call compiles both into one shared library,
+loaded with ctypes: no PyTorch headers, a build of seconds. The library
+goes to ``build/ulcx_torch/`` beside the package, named by a hash of the
+sources and flags, so a changed source is rebuilt at its first use and
+an unchanged one is loaded as it is. Nothing is built when the module is
+imported.
+
+``on_cpu``, ``check`` and ``launch`` are the wrappers' common steps: a
+wrapper runs its plain version on CPU tensors, and on CUDA tensors
+checks its arguments and launches its kernel.
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ import time
 from functools import lru_cache
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "encode_walks.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (_CSRC / "encode_walks.cu", _CSRC / "decode_walks.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "ulcx_torch"
 # No --use_fast_math: the walks need the accurate logf and sqrtf, with
 # denormals kept.
@@ -35,6 +41,9 @@ _SIGNATURES = {
     "ulcx_p2": (7, 2),
     "ulcx_p3_size": (4, 2),
     "ulcx_p3_materialize": (11, 3),
+    "ulcx_fsm": (7, 4),
+    "ulcx_rng_expand": (4, 2),
+    "ulcx_rng": (4, 2),
 }
 
 
@@ -50,17 +59,19 @@ def _nvcc() -> str:
 
 
 def build() -> tuple[Path, float]:
-    """Compile the kernels if this source has no library yet. Returns
+    """Compile the kernels if these sources have no library yet. Returns
     (library path, seconds spent compiling; 0 when already built)."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libencode_walks_{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    out = BUILD_DIR / f"libulcx_walks_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
@@ -81,3 +92,40 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def on_cpu(*tensors) -> bool:
+    """True when every input lies on the CPU; False when all lie on one
+    CUDA device; anything else raises."""
+    devs = {x.device for x in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {sorted(map(str, devs))}")
+    (dev,) = devs
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    return False
+
+
+def check(name: str, x, dtype, shape) -> None:
+    """Raise unless ``x`` has this dtype and shape and is contiguous."""
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def launch(fn_name: str, tensors, ints, device) -> None:
+    """Call entry point ``fn_name`` on the current stream of ``device``
+    with the tensors' pointers, then the ints; raise on a CUDA error."""
+    import torch
+
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn_name)(*(x.data_ptr() for x in tensors), *ints, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: kernel launch failed with CUDA error {rc}")

@@ -1,0 +1,348 @@
+"""The three decode kernels: CUDA kernels and their plain versions.
+
+Port of ``ulcx.bitstream.pallas_decode``. Each kernel has
+
+- a wrapper (``fsm``, ``rng_expand``, ``rng``): on a CPU tensor it runs
+  the plain version; on a CUDA tensor it launches its kernel from
+  ``csrc/decode_walks.cu`` or raises. It checks device, dtype, shape and
+  contiguity, allocates the outputs, launches on the current stream,
+  and adds one to its ``launches`` counter;
+- a plain PyTorch version (``*_plain``) with the same signature: a
+  Python loop over tokens or positions, vectorized over streams. It is
+  the CPU path and the kernels' oracle on the card.
+
+Layouts: token planes [T, B] and position planes [P, B], stream
+fastest; per-stream values [B]. RNG seeds are u32 values held as the
+int32 with the same bits; the plain versions step them in int64 masked
+to 32 bits, since torch has no logical right shift on int32.
+
+Field maps (P <= 32768):
+  rec         record start 15 bits | record type << 15 (0 where no record)
+  code        level a 5 bits | decay dn << 5 | quantizer qi << 13
+  flags       (expansion) start bit 0 | draw record 1 | coded coefficient 2 |
+              tail 3 | code << 4, set at record starts only
+  rng flags   draw bit 0 | start bit 1, the draw bit filled forward
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from ulcx_torch._build import check as _check
+from ulcx_torch._build import launch as _launch
+from ulcx_torch._build import on_cpu as _on_cpu
+from ulcx_torch.bitstream.encode_kernels import _wrap_i32
+from ulcx_torch.ops.patterns import pattern_subblock_offsets, pattern_subblock_sizes
+from ulcx_torch.ops.quant import expand_quantizer
+
+# FSM modes (the vocabulary of ulcx.bitstream.decode)
+M_QUANT_START = 0
+M_QUANT_EXT_S = 1
+M_NORMAL = 2
+M_QUANT_MID = 3
+M_QUANT_EXT_M = 4
+M_ZSHORT = 5
+M_LRUN_Y = 6
+M_LRUN_X = 7
+M_NOISE_Z = 8
+M_NOISE_Y = 9
+M_NOISE_X = 10
+M_TAIL_Z = 11
+M_TAIL_Y = 12
+M_TAIL_X = 13
+M_DONE = 14
+M_CORRUPT = 15
+
+REC_NONE = 0
+REC_COEF = 1
+REC_ZERO = 2
+REC_NOISE = 3
+REC_TAIL = 4
+
+MAX_P = 32768  # rec holds a record start in 15 bits
+SEED = 1234567  # the reference's global noise seed (ulcDecoder.c:75-81)
+_I32 = torch.int32
+_M32 = 0xFFFFFFFF
+_FLT_MIN = 2.0**-126
+
+
+def _next_end_table(block_size: int) -> np.ndarray:
+    """[16, 8]: for each pattern and N/8 slot, the in-channel coefficient
+    index where the segment holding that slot ends."""
+    out = np.zeros((16, 8), np.int32)
+    for pat in range(16):
+        pi = pat or 1
+        for off, ss in zip(
+            pattern_subblock_offsets(pi, block_size),
+            pattern_subblock_sizes(pi, block_size),
+        ):
+            s0 = off // (block_size // 8)
+            s1 = (off + ss) // (block_size // 8)
+            out[pat, s0:s1] = off + ss
+    return out
+
+
+@lru_cache(maxsize=16)
+def _next_end_tensor(block_size: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_next_end_table(block_size)).to(device)
+
+
+def _ffill(values: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """Along dim 0: the value at the last start at or before each
+    position, 0 before the first start."""
+    pos = torch.arange(values.shape[0], device=values.device)[:, None]
+    last = torch.where(start, pos, -1).cummax(dim=0).values
+    filled = values.gather(0, last.clamp(min=0))
+    return torch.where(last >= 0, filled, torch.zeros_like(filled))
+
+
+def _xorshift(state: torch.Tensor) -> torch.Tensor:
+    """xorshift32(13, 17, 5) on u32 values held in int64."""
+    s = state ^ ((state << 13) & _M32)
+    s = s ^ (s >> 17)
+    return s ^ ((s << 5) & _M32)
+
+
+def rng_flags(flags: torch.Tensor) -> torch.Tensor:
+    """Expansion flags [P, B] -> the unfused RNG kernel's flags: draw bit
+    0 (the record's draw bit, filled forward from its start) | start
+    bit 1."""
+    start = (flags & 1) == 1
+    draw = _ffill((flags >> 1) & 1, start)
+    return (draw | ((flags & 1) << 1)).to(_I32)
+
+
+# --- plain versions ---------------------------------------------------------
+
+
+@lru_cache(maxsize=1)
+def _syntax_tables() -> dict:
+    """The token syntax as [16 modes, 16 nybbles] tables: the next mode
+    when the token ends no record (``next``), the record it ends
+    (``kind``; a run's record is taken back if the run overflows its
+    segment), a bad token (``bad``), the quantizer it sets (``qi``, -1
+    to keep), how it loads the run register (``r0``: 1 = x, 2 =
+    r0 << 4 | x), and whether it is a run length (``run``)."""
+    x = np.arange(16)
+    t = {k: np.zeros((16, 16), np.int64) for k in ("next", "kind", "bad", "r0", "run")}
+    t["qi"] = np.full((16, 16), -1, np.int64)
+    t["next"][:] = np.arange(16)[:, None]  # DONE and CORRUPT stay
+    t["next"][M_QUANT_START] = np.where(x == 0xE, M_QUANT_EXT_S, M_NORMAL)
+    t["bad"][M_QUANT_START] = x == 0xF
+    t["qi"][M_QUANT_START] = np.where(x < 0xE, x, -1)
+    for m in (M_QUANT_EXT_S, M_QUANT_EXT_M):
+        t["next"][m] = M_NORMAL
+        t["kind"][m] = np.where(x == 0xF, REC_ZERO, REC_NONE)
+        t["qi"][m] = np.where(x != 0xF, 0xE + x, -1)
+    t["next"][M_QUANT_MID] = np.where(x == 0xF, M_TAIL_Z, np.where(x == 0xE, M_QUANT_EXT_M, M_NORMAL))
+    t["qi"][M_QUANT_MID] = np.where(x < 0xE, x, -1)
+    t["next"][M_NORMAL] = M_NORMAL
+    for tok, m in ((0x0, M_ZSHORT), (0x1, M_LRUN_Y), (0x8, M_NOISE_Z), (0xF, M_QUANT_MID)):
+        t["next"][M_NORMAL, tok] = m
+    t["kind"][M_NORMAL] = np.where(np.isin(x, (0x0, 0x1, 0x8, 0xF)), REC_NONE, REC_COEF)
+    for m, kind in ((M_ZSHORT, REC_ZERO), (M_LRUN_X, REC_ZERO), (M_NOISE_X, REC_NOISE)):
+        t["kind"][m] = kind
+        t["run"][m] = 1
+    t["kind"][M_TAIL_X] = REC_TAIL
+    for m in (M_LRUN_Y, M_NOISE_Z, M_NOISE_Y, M_TAIL_Z, M_TAIL_Y):
+        t["next"][m] = m + 1
+        t["r0"][m] = 2 if m in (M_NOISE_Y, M_TAIL_Y) else 1
+    return {k: v.reshape(-1) for k, v in t.items()}
+
+
+def fsm_plain(wc, tokens, p_tot: int, n: int):
+    """Nybble-syntax state machine. wc [B] i32 window control (pattern
+    in bits 4-7); tokens [T, B] i32 nybbles after the header. Returns
+    (rec [T, B], code [T, B], consumed [B], corrupt [B]), all i32:
+    consumed counts the tokens read, including the one that ends the
+    block; corrupt is 1 unless the block ended within the tokens.
+
+    A record ends at the segment end (a quantizer stop, a tail), one
+    past the coefficient, or after the run; the block ends when a record
+    reaches P, and a segment's next token is a quantizer."""
+    t_len, b = tokens.shape
+    dev = tokens.device
+    tab = {k: torch.from_numpy(v).to(dev) for k, v in _syntax_tables().items()}
+    nse = _next_end_tensor(n, dev)[((wc >> 4) & 15).long()].long()  # [B, 8]
+    slot_shift = int(np.log2(n // 8))
+    mode = torch.full((b,), M_QUANT_START, dtype=torch.int64, device=dev)
+    pos = torch.zeros_like(mode)
+    qi = torch.zeros_like(mode)
+    r0 = torch.zeros_like(mode)
+    consumed = torch.zeros_like(mode)
+    rec = torch.zeros((t_len, b), dtype=_I32, device=dev)
+    code = torch.zeros((t_len, b), dtype=_I32, device=dev)
+    for t in range(t_len):
+        active = mode < M_DONE
+        if t % 32 == 0 and not bool(active.any()):
+            break  # every block has ended: the rest of the planes stays 0
+        x = tokens[t].long()
+        idx = mode * 16 + x
+        se = (pos & ~(n - 1)) + nse.gather(1, ((pos & (n - 1)) >> slot_shift)[:, None])[:, 0]
+        is_run = tab["run"][idx] == 1
+        n_run = torch.where(mode == M_ZSHORT, x + 1,
+                            torch.where(mode == M_LRUN_X, ((r0 << 4) | x) + 33, ((r0 << 1) | (x & 1)) + 16))
+        run_bad = is_run & (n_run > se - pos)
+        kind = torch.where(run_bad, REC_NONE, tab["kind"][idx])
+        end = torch.where(is_run, pos + n_run, torch.where(kind == REC_COEF, pos + 1, se))
+        seg_adv = torch.where(end >= p_tot, M_DONE, torch.where(end == se, M_QUANT_START, M_NORMAL))
+        emit = kind != REC_NONE
+        new_m = torch.where(emit, seg_adv, tab["next"][idx])
+        new_m = torch.where((tab["bad"][idx] == 1) | run_bad, M_CORRUPT, new_m)
+        a = torch.where(kind == REC_COEF, x, torch.where(kind == REC_NOISE, (x >> 1) + 1, (r0 >> 4) + 1))
+        a = torch.where(kind == REC_ZERO, 0, a)
+        dn = torch.where(kind == REC_TAIL, ((r0 & 0xF) << 4) | x, 0)
+        emit = emit & active
+        rec[t] = torch.where(emit, torch.clamp(pos, max=0x7FFF) | (kind << 15), 0).to(_I32)
+        code[t] = torch.where(emit, a | (dn << 5) | (qi << 13), 0).to(_I32)
+        r0_op = tab["r0"][idx]
+        new_r0 = torch.where(r0_op == 1, x, torch.where(r0_op == 2, ((r0 << 4) | x) & 0xFF, r0))
+        new_qi = tab["qi"][idx]
+        consumed = consumed + active.long()
+        mode = torch.where(active, new_m, mode)
+        pos = torch.where(active & emit, end, pos)
+        qi = torch.where(active & (new_qi >= 0), new_qi, qi)
+        r0 = torch.where(active, new_r0, r0)
+    return rec, code, consumed.to(_I32), (mode != M_DONE).to(_I32)
+
+
+def _levels(flags: torch.Tensor):
+    """Per position, from the record codes: (level, decay) f32 as the
+    reference rebuilds them (every product exact)."""
+    a = (flags >> 4) & 0x1F
+    dn = (flags >> 9) & 0xFF
+    quant = expand_quantizer((flags >> 17) & 0x1F)
+    is_coef = (flags & 4) == 4
+    is_tail = (flags & 8) == 8
+    s = ((a & 0xF) ^ 0x8) - 0x8
+    val_coef = torch.where(s < 0, -(s * s), s * s).to(torch.float32) * quant
+    aa = (a * a).to(torch.float32) * quant
+    lvl = torch.where(is_coef, val_coef, torch.where(is_tail, aa * 0.0625, aa * 0.25))
+    dcy = torch.where(is_tail, 1.0 + (dn * dn).to(torch.float32) * -(2.0**-19), 0.0)
+    return lvl, dcy
+
+
+def rng_expand_plain(flags, seed):
+    """Fused noise-RNG replay, record fill and coefficient assembly.
+    flags [P, B] i32 (expansion flags); seed [B] i32 (u32 bits).
+    Returns (coef [P, B] f32, new seed [B] i32).
+
+    The draw bit, level and decay latch at record starts. At each draw
+    position the xorshift32 state steps and its top bit flips the
+    record's sign parity (reset at the start); a tail record's
+    magnitude then decays by one rounded product, flushed to zero when
+    it leaves the normal range, as the TPU and XLA flush denormals."""
+    n_pos = flags.shape[0]
+    start = (flags & 1) == 1
+    lvl_in, dcy_in = _levels(flags)
+    lvl = _ffill(lvl_in, start)
+    dcy = _ffill(dcy_in, start)
+    draw = _ffill((flags >> 1) & 1, start) == 1
+    is_coef = (flags & 4) == 4
+    state = seed.long() & _M32
+    parity = torch.zeros_like(state)
+    mag = torch.zeros_like(lvl_in[0])
+    coef = torch.empty_like(lvl_in)
+    for p in range(n_pos):
+        d = draw[p]
+        state = torch.where(d, _xorshift(state), state)
+        parity = torch.where(start[p], 0, parity)
+        parity = torch.where(d, parity ^ ((state >> 31) & 1), parity)
+        mag = torch.where(start[p], lvl_in[p], mag)
+        signed = torch.where(parity == 1, -mag, mag)
+        coef[p] = torch.where(is_coef[p], lvl[p], torch.where(d, signed, 0.0))
+        decayed = mag * dcy[p]
+        decayed = torch.where(decayed.abs() < _FLT_MIN, decayed * 0.0, decayed)
+        mag = torch.where(d & (dcy[p] != 0.0), decayed, mag)
+    return coef, _wrap_i32(state)
+
+
+def rng_plain(flags, seed):
+    """Unfused sign replay. flags [P, B] i32 (draw bit 0 | start bit 1,
+    see ``rng_flags``); seed [B] i32 (u32 bits). Returns (sign [P, B]
+    f32 of +-1, new seed [B] i32)."""
+    draw = (flags & 1) == 1
+    start = (flags & 2) == 2
+    state = seed.long() & _M32
+    parity = torch.zeros_like(state)
+    sign = torch.empty(flags.shape, dtype=torch.float32, device=flags.device)
+    for p in range(flags.shape[0]):
+        state = torch.where(draw[p], _xorshift(state), state)
+        parity = torch.where(start[p], 0, parity)
+        parity = torch.where(draw[p], parity ^ ((state >> 31) & 1), parity)
+        sign[p] = torch.where(parity == 1, -1.0, 1.0)
+    return sign, _wrap_i32(state)
+
+
+# --- wrappers ---------------------------------------------------------------
+
+
+def fsm(wc, tokens, p_tot: int, n: int):
+    """Nybble-syntax state machine (replaces pallas_decode._fsm_kernel)
+    -> (rec, code, consumed, corrupt); see ``fsm_plain``."""
+    if p_tot > MAX_P:
+        raise NotImplementedError(f"P = {p_tot} > {MAX_P} is not ported: ROADMAP A.9")
+    if _on_cpu(wc, tokens):
+        return fsm_plain(wc, tokens, p_tot, n)
+    t_len, b = tokens.shape
+    _check("wc", wc, _I32, (b,))
+    _check("tokens", tokens, _I32, (t_len, b))
+    dev = tokens.device
+    # the kernel stops at the end of the block: tokens after it stay 0
+    rec = torch.zeros((t_len, b), dtype=_I32, device=dev)
+    code = torch.zeros((t_len, b), dtype=_I32, device=dev)
+    consumed = torch.empty((b,), dtype=_I32, device=dev)
+    corrupt = torch.empty((b,), dtype=_I32, device=dev)
+    _launch("ulcx_fsm", (wc, tokens, _next_end_tensor(n, dev), rec, code, consumed, corrupt),
+            (b, t_len, p_tot, n), dev)
+    fsm.launches += 1
+    return rec, code, consumed, corrupt
+
+
+def _rng_args(flags, seed):
+    """Check the RNG kernels' inputs; returns (P, B, new seed plane)."""
+    n_pos, b = flags.shape
+    _check("flags", flags, _I32, (n_pos, b))
+    _check("seed", seed, _I32, (b,))
+    return n_pos, b, torch.empty((b,), dtype=_I32, device=flags.device)
+
+
+def rng_expand(flags, seed):
+    """Fused RNG replay and coefficient assembly (replaces
+    pallas_decode._rng_expand_kernel) -> (coef [P, B] f32, new seed)."""
+    if _on_cpu(flags, seed):
+        return rng_expand_plain(flags, seed)
+    n_pos, b, seed_out = _rng_args(flags, seed)
+    coef = torch.empty((n_pos, b), dtype=torch.float32, device=flags.device)
+    _launch("ulcx_rng_expand", (flags, seed, coef, seed_out), (b, n_pos), flags.device)
+    rng_expand.launches += 1
+    return coef, seed_out
+
+
+def rng(flags, seed):
+    """Unfused sign replay (replaces pallas_decode._rng_kernel) ->
+    (sign [P, B] f32, new seed)."""
+    if _on_cpu(flags, seed):
+        return rng_plain(flags, seed)
+    n_pos, b, seed_out = _rng_args(flags, seed)
+    sign = torch.empty((n_pos, b), dtype=torch.float32, device=flags.device)
+    _launch("ulcx_rng", (flags, seed, sign, seed_out), (b, n_pos), flags.device)
+    rng.launches += 1
+    return sign, seed_out
+
+
+KERNELS = (fsm, rng_expand, rng)
+for _fn in KERNELS:
+    _fn.launches = 0
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}

@@ -31,6 +31,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ulcx_torch._build import check as _check
+from ulcx_torch._build import launch as _launch
+from ulcx_torch._build import on_cpu as _on_cpu
+from ulcx_torch.ops.quant import sqrt_rn
+
 N_CAND = 8
 SENT = 1 << 20  # "no position" sentinel (> any p)
 
@@ -47,7 +52,7 @@ def cq_unsigned(v: torch.Tensor) -> torch.Tensor:
     """Companded quantize |v| (reference ulcHelper.h:50-65). Clipped in
     float before the int cast, so +inf saturates as in XLA and PTX (a
     CPU ``.to(int32)`` of inf gives INT32_MIN)."""
-    q = torch.floor(0.5 + torch.sqrt(torch.clamp(v - 0.25, min=0.0)))
+    q = torch.floor(0.5 + sqrt_rn(torch.clamp(v - 0.25, min=0.0)))
     return torch.where(v >= 0.5, torch.clamp(q, max=_INT_MAX_F), 0.0).to(_I32)
 
 
@@ -286,40 +291,6 @@ def p3_materialize_plain(coef, ampn, hfamp, hfmeta, aux, state, hdr, n_words: in
 
 
 # --- wrappers ---------------------------------------------------------------
-
-
-def _on_cpu(*tensors) -> bool:
-    """True when every input lies on the CPU; False when all lie on one
-    CUDA device; anything else raises."""
-    devs = {x.device for x in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on several devices: {sorted(map(str, devs))}")
-    (dev,) = devs
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    return False
-
-
-def _check(name: str, x: torch.Tensor, dtype, shape) -> None:
-    if x.dtype != dtype:
-        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
-def _launch(fn_name: str, tensors, ints, device) -> None:
-    from ulcx_torch import _build
-
-    lib = _build.library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn_name)(*(x.data_ptr() for x in tensors), *ints, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name}: kernel launch failed with CUDA error {rc}")
 
 
 def p1(t, c, key, coef, aux):

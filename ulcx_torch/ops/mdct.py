@@ -1,12 +1,13 @@
-"""Sine windows and the MDCT/MDST folds (forward half of ``ulcx.ops.mdct``).
+"""Sine windows, the MDCT/MDST folds and the IMDCT (port of ``ulcx.ops.mdct``).
 
 Reduction (see ``ulcx.ops.mdct`` for the derivation from the
 bitstream's IMDCT basis):
 
   forward:  u = fold(window * frame2N);  X = -(2/N) * dct4(u)
 
+  inverse:  v = dct4(X);  y = concat(-v[N/2:], rev(v), v[:N/2])
+
 with fold(z) = concat(-rev(z[N:3N/2]) - z[3N/2:], z[:N/2] - rev(z[N/2:N])).
-The inverse functions belong to the decode slice and are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ulcx_torch.ops.dct import dct4
 
 
 def rise_window(length: int, overlap: torch.Tensor) -> torch.Tensor:
@@ -49,3 +52,15 @@ def mdst_fold(z: torch.Tensor) -> torch.Tensor:
     """[..., 2S] windowed frame -> [..., S] DST-IV input."""
     za, zb, zc, zd = _quarters(z)
     return torch.cat([zc - zd, za + zb], dim=-1)
+
+
+def imdct_halfspec(x: torch.Tensor, backend: str = "matmul") -> torch.Tensor:
+    """[..., S] coefficients -> [..., S] half-spectrum v (unnormalized);
+    v determines the 2S-sample IMDCT output (``imdct_expand``)."""
+    return dct4(x, backend)
+
+
+def imdct_expand(v: torch.Tensor) -> torch.Tensor:
+    """Half-spectrum v [..., S] -> full aliased output y [..., 2S]."""
+    h = v.shape[-1] // 2
+    return torch.cat([-v[..., h:], v.flip(-1), v[..., :h]], dim=-1)

@@ -1,15 +1,15 @@
-"""Batch entry point (single device).
+"""Batch entry points (single device).
 
-Port of ``ulcx.parallel.mesh.batch_encode`` without the mesh: streams
-are independent, so one device encodes the whole batch. Splitting the
-batch over several GPUs and ``batch_decode`` are later work
-(ROADMAP A.6, A.11).
+Port of ``ulcx.parallel.mesh.batch_encode`` and ``batch_decode`` without
+the mesh: streams are independent, so one device codes the whole batch.
+Splitting the batch over several GPUs is later work (ROADMAP A.11).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ulcx_torch.codec.decoder import decode_stream_batched
 from ulcx_torch.codec.encoder import encode_stream_batched
 from ulcx_torch.utils.config import CodecConfig
 
@@ -27,3 +27,12 @@ def batch_encode(blocks, cfg: CodecConfig, mode: str, mesh=None, scan_major: boo
         "avg_complexity": torch.mean(out.complexity),
     }
     return out, stats
+
+
+def batch_decode(streams, n_blocks: int, window_bytes: int, cfg: CodecConfig, mesh=None):
+    """Decode a batch of padded byte streams [B, S] uint8 -> (pcm
+    [B, T, C, N], bits [B, T], corrupt [B, T]) with T = n_blocks, on the
+    device ``streams`` lies on."""
+    if mesh is not None:
+        raise NotImplementedError("multi-device batch_decode is not ported: ROADMAP A.11")
+    return decode_stream_batched(torch.as_tensor(streams), n_blocks, window_bytes, cfg)
