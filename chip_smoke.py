@@ -12,7 +12,9 @@ Phases, each of which raises on failure:
    (stereo bs2048, P=4096, from ``bench.make_corpus``), at B=128 and at
    the main path's B=512, go through each kernel and its plain PyTorch
    version on the card; every output must be identical, and both are
-   timed;
+   timed; then every kernel again at a ragged shape (B=13 streams, not a
+   multiple of the p2/p3 stream tile, 3 channels x bs256, P=768),
+   identical too, p3 materialize also into a 6-word buffer;
 4. main path: ``batch_encode`` CBR-128 at B=512, T=8 on the card; every
    block within its budget, the launch counters exactly T x (3, 3, 2, 1),
    a second run byte-identical; prints the encode realtime factor;
@@ -31,8 +33,11 @@ Phases, each of which raises on failure:
    bits and corrupt exact, PCM within 1e-5 RMS.
 
 The second-to-last line is a JSON object with each kernel's launches on
-its main path, its largest difference from the plain version and both
-times at the main path's B=512; the last is ``{"ok": true, "device": {...}}``. The script exits
+its main path, its largest difference from the plain version, both
+times at the main path's B=512, and its bound: the bytes of its inputs
+and outputs at that shape over the card's 3.35 TB/s (no PyTorch call
+computes any of these serial walks, so ``library_ms`` is null); the last
+is ``{"ok": true, "device": {...}}``. The script exits
 non-zero, printing neither, when there is no CUDA device or any phase
 fails. It imports nothing of JAX.
 """
@@ -70,6 +75,9 @@ REPLACES = {
     "rng": "ulcx/bitstream/pallas_decode.py:346",
 }
 PER_BLOCK = {"p1": 3, "p2": 3, "p3_size": 2, "p3_materialize": 1}
+REDESIGNED = {"p2": "PR 3", "p3_size": "PR 3", "p3_materialize": "PR 3"}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+RAGGED_B, RAGGED_BS, RAGGED_CHAN = 13, 256, 3
 DEC_PER_BLOCK = {"fsm": 1, "rng_expand": 1, "rng": 0}
 
 
@@ -102,9 +110,19 @@ def analyze(x, cfg, device):
     return blk, torch.stack(n_nz, dim=1)
 
 
-def kernels_vs_plain(cfg, x, device):
+def io_bytes(args, out):
+    """Bytes of a call's tensor inputs and outputs, each counted once."""
+    import torch
+
+    out = out if isinstance(out, tuple) else (out,)
+    return sum(x.nbytes for x in (*args, *out) if isinstance(x, torch.Tensor))
+
+
+def kernels_vs_plain(cfg, x, device, overflow_words=False):
     """Phase 3: every kernel against its plain version on the planes of
-    one block step; returns {name: (max_abs_err, kernel ms, plain ms)}."""
+    one block step, and with ``overflow_words`` p3 materialize once more
+    into a word buffer most streams overflow; returns {name: (max_abs_err,
+    kernel ms, plain ms, bytes)}."""
     import torch
 
     from ulcx_torch.bitstream import encode_kernels as ek
@@ -147,13 +165,30 @@ def kernels_vs_plain(cfg, x, device):
             err = max(err, int((g.long() - w.long()).abs().max()))
         if err:
             raise AssertionError(f"{name}: kernel differs from its plain version by {err}")
-        results[name] = (err, ms, plain_ms)
+        results[name] = (err, ms, plain_ms, io_bytes(args, got))
         print(f"{name}: identical to plain; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms", flush=True)
         if name == "p1":
             s12 = got[0]
         elif name == "p2":
             state = got[0]
+    if overflow_words:
+        args = (pl.coef, pl.ampn, pl.hfamp, pl.hfmeta, pl.aux, state, pl.hdr, 6)
+        for w, g in zip(ek.p3_materialize_plain(*args), ek.p3_materialize(*args)):
+            if not torch.equal(w, g):
+                raise AssertionError("p3_materialize (n_words=6): kernel differs from plain")
+        print("p3_materialize n_words=6: identical to plain", flush=True)
     return results
+
+
+def ragged_corpus():
+    """RAGGED_B streams x 2 blocks of 3 channels at bs256: the corpus is
+    stereo, so the third channel is a scaled copy of the first."""
+    import numpy as np
+
+    from bench import make_corpus
+
+    x = make_corpus(RAGGED_B, 2, RAGGED_BS)
+    return np.ascontiguousarray(np.concatenate([x, 0.5 * x[:, :, :1]], axis=2), np.float32)
 
 
 def timed(fn, args, reps):
@@ -229,7 +264,7 @@ def cuda_vs_cpu(cfg, x, devices=("cuda", "cpu")):
 
     res = {}
     for dev in devices:
-        out, _ = batch_encode(torch.from_numpy(x).to(dev), cfg, "cbr", rate_kbps=RATE_KBPS)
+        out, _ = batch_encode(x, cfg, "cbr", rate_kbps=RATE_KBPS, device=dev)
         res[dev] = (out.window_ctrl.cpu(), analyze(x, cfg, dev)[1], out.size_bits.cpu(),
                     out.data.cpu())
     (wg, ng, sg, dg), (wc, nc, sc, dc) = (res[d] for d in devices)
@@ -318,7 +353,7 @@ def decode_kernels_vs_plain(cfg, streams, offs, win, device):
                     raise AssertionError(f"{name} (block {blk}): kernel differs from its plain "
                                          f"version (max abs err {err})")
             if blk == 0:
-                results[name] = (err, ms, plain_ms)
+                results[name] = (err, ms, plain_ms, io_bytes(args, got))
             print(f"{name} block {blk}: identical to plain (bits); kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.1f} ms", flush=True)
     return results
@@ -382,7 +417,7 @@ def decode_cuda_vs_cpu(cfg, streams, win, devices=("cuda", "cpu")):
 
     from ulcx_torch.parallel.mesh import batch_decode
 
-    res = {dev: [y.cpu() for y in batch_decode(streams[:DEC_CPU_B].to(dev), DEC_CPU_T, win, cfg)]
+    res = {dev: [y.cpu() for y in batch_decode(streams[:DEC_CPU_B], DEC_CPU_T, win, cfg, device=dev)]
            for dev in devices}
     (pcm_g, bits_g, corrupt_g), (pcm_c, bits_c, corrupt_c) = (res[d] for d in devices)
     if not (torch.equal(bits_g, bits_c) and torch.equal(corrupt_g, corrupt_c)):
@@ -404,7 +439,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on a card",
               file=sys.stderr)
         return 1
-    sys.modules.setdefault("jax", None)  # the port must not need it
+    sys.modules["jax"] = None  # the port must not need JAX,
+    sys.modules["ulcx"] = None  # nor the JAX package
     sys.path.insert(0, HERE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -437,6 +473,9 @@ def main() -> int:
     for b in (KERNEL_B, MAIN_B):
         print(f"B={b}, P={2 * BS}:", flush=True)
         kres[b] = kernels_vs_plain(cfg, x[:b, :2].copy(), "cuda")
+    cfg_r = CodecConfig(rate_hz=44100, n_chan=RAGGED_CHAN, block_size=RAGGED_BS)
+    print(f"B={RAGGED_B}, P={RAGGED_CHAN * RAGGED_BS} (ragged):", flush=True)
+    kernels_vs_plain(cfg_r, ragged_corpus(), "cuda", overflow_words=True)
 
     phase("4 main path")
     counts, warm, audio_s, encoded = main_path(cfg, x, "cuda")
@@ -466,9 +505,14 @@ def main() -> int:
     rows = [(name, SOURCE, counts[name], v) for name, v in kres[MAIN_B].items()]
     rows += [(name, DEC_SOURCE, dcounts[name], v) for name, v in dres[MAIN_B].items()]
     kernels = []
-    for name, source, launches, (err, ms, plain_ms) in rows:
+    for name, source, launches, (err, ms, plain_ms, nbytes) in rows:
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         row = {"name": name, "route": "cuda", "source": source, "replaces": REPLACES[name],
-               "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+               "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+        if name in REDESIGNED:
+            row["bound_us"] = bound_ms * 1e3
+            row["redesigned"] = REDESIGNED[name]
         if name == "rng":
             row["note"] = "not on a main path: held against its plain version only"
         kernels.append(row)

@@ -21,9 +21,11 @@ from ulcx.utils.config import CodecConfig
 from ulcx_torch.analysis.batched import analyze_block_batched as t_analyze
 from ulcx_torch.analysis.block import carry_from_numpy, carry_to_numpy
 from ulcx_torch.codec.encoder import init_carry_batched as t_init
+from ulcx_torch.utils.config import CodecConfig as TCodecConfig
 
 N, C, T = 256, 2, 4
-CFG = CodecConfig(rate_hz=44100, n_chan=C, block_size=N)
+KW = dict(rate_hz=44100, n_chan=C, block_size=N)
+CFG, TCFG = CodecConfig(**KW), TCodecConfig(**KW)  # ulcx's, the port's
 
 
 def _signals():
@@ -42,11 +44,11 @@ def runs():
     x = _signals()
     b = x.shape[0]
     step = jax.jit(lambda c, blk: j_analyze(c, blk, CFG))
-    jc, tc = j_init(CFG, b), t_init(CFG, b)
+    jc, tc = j_init(CFG, b), t_init(TCFG, b, "cpu")
     out = []
     for j in range(T):
         jc, jb = step(jc, jnp.asarray(x[:, j]))
-        tc, tb = t_analyze(tc, torch.from_numpy(x[:, j]), CFG)
+        tc, tb = t_analyze(tc, torch.from_numpy(x[:, j]), TCFG)
         out.append((jax.tree_util.tree_map(np.asarray, jb), tb))
     return out, jax.tree_util.tree_map(np.asarray, jc), tc
 
@@ -100,6 +102,6 @@ def test_carry_matches_and_round_trips(runs):
         assert got.dtype == want.dtype and got.shape == want.shape
         # filter state: EMA matmuls in another summation order
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
-    again = carry_from_numpy(jc)
+    again = carry_from_numpy(jc, "cpu")
     for got, want in zip(jax.tree_util.tree_leaves(again), jax.tree_util.tree_leaves(jc)):
         np.testing.assert_array_equal(got.numpy(), want)

@@ -38,24 +38,30 @@ def dev():
     return torch.device("cuda")
 
 
-def _planes(dev):
-    """Walk planes of the second block of B corpus streams, with zero
+def _planes(dev, b=B, n_chan=C):
+    """Walk planes of the second block of b corpus streams, with zero
     and denormal coefficients in stream 1 and a silent stream 2, plus
-    candidate counts [B, 8] that include nn <= 0 and nn = P."""
-    x = torch.from_numpy(make_corpus(B, 2, N)).to(dev)
-    carry = init_carry_batched(CFG, B, dev)
+    candidate counts [b, 8] that include nn <= 0 and nn = P. The corpus
+    is stereo: a third channel is a scaled copy of the first."""
+    cfg = CodecConfig(rate_hz=44100, n_chan=n_chan, block_size=N)
+    p = n_chan * N
+    x = make_corpus(b, 2, N)
+    if n_chan == 3:
+        x = np.concatenate([x, 0.5 * x[:, :, :1]], axis=2)
+    x = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+    carry = init_carry_batched(cfg, b, dev)
     for j in range(2):
-        carry, blk = analyze_block_batched(carry, x[:, j], CFG)
-    m = blk.mdct.clone().reshape(B, -1)
+        carry, blk = analyze_block_batched(carry, x[:, j], cfg)
+    m = blk.mdct.clone().reshape(b, -1)
     m[1, ::7] = 0.0
     m[1, 3::11] = 1e-40
     m[2] = 0.0
     blk = blk._replace(mdct=m.reshape(blk.mdct.shape))
-    pl = fe.make_planes(fe.prepare_fast(blk, CFG))
+    pl = fe.make_planes(fe.prepare_fast(blk, cfg))
     rng = np.random.default_rng(3)
-    nn = rng.integers(1, P, (B, 8)).astype(np.int32)
-    nn[:, 0], nn[0, 1], nn[:, 7], nn[2, 6] = 0, -3, P, P - 1
-    return pl, torch.from_numpy(nn).to(dev)
+    nn = rng.integers(1, p, (b, 8)).astype(np.int32)
+    nn[:, 0], nn[0, 1], nn[:, 7], nn[2, 6] = 0, -3, p, p - 1
+    return pl, torch.from_numpy(nn).to(dev), cfg
 
 
 def _same(got, want):
@@ -66,8 +72,11 @@ def _same(got, want):
         assert torch.equal(g, w)
 
 
-def test_kernels_match_plain(dev):
-    pl, nn = _planes(dev)
+# B = 13 is not a multiple of the kernels' stream tile; P = 768 is not a
+# power of two
+@pytest.mark.parametrize("b,n_chan", [(B, C), (13, 2), (13, 3)])
+def test_kernels_match_plain(dev, b, n_chan):
+    pl, nn, cfg = _planes(dev, b, n_chan)
     t, c = fe._tc_of(pl, nn)
     ek.reset_launch_counts()
     s12 = ek.p1(t, c, pl.key, pl.coef, pl.aux)
@@ -75,7 +84,7 @@ def test_kernels_match_plain(dev):
     state = ek.p2(t, c, pl.key, pl.thr, pl.aux, s12)
     _same(state, ek.p2_plain(t, c, pl.key, pl.thr, pl.aux, s12))
     _same(ek.p3_size(pl.thr, pl.aux, state), ek.p3_size_plain(pl.thr, pl.aux, state))
-    for n_words in (max_block_bytes(CFG) // 4, 6):  # 6: most streams overflow it
+    for n_words in (max_block_bytes(cfg) // 4, 6):  # 6: most streams overflow it
         args = (pl.coef, pl.ampn, pl.hfamp, pl.hfmeta, pl.aux, state, pl.hdr, n_words)
         got = ek.p3_materialize(*args)
         _same(got, ek.p3_materialize_plain(*args))
@@ -85,7 +94,7 @@ def test_kernels_match_plain(dev):
 
 
 def test_wrappers_refuse_mixed_devices_and_types(dev):
-    pl, nn = _planes(dev)
+    pl, nn, _ = _planes(dev)
     t, c = fe._tc_of(pl, nn)
     with pytest.raises(ValueError, match="several devices"):
         ek.p1(t.cpu(), c, pl.key, pl.coef, pl.aux)
@@ -99,10 +108,10 @@ def test_wrappers_refuse_mixed_devices_and_types(dev):
 def test_encode_path_on_card_matches_cpu(dev):
     x = torch.from_numpy(make_corpus(8, 2, N))
     ek.reset_launch_counts()
-    got, _ = batch_encode(x.to(dev), CFG, "cbr", rate_kbps=128.0)
+    got, _ = batch_encode(x, CFG, "cbr", rate_kbps=128.0, device=dev)
     torch.cuda.synchronize()
     assert ek.launch_counts() == {"p1": 6, "p2": 6, "p3_size": 4, "p3_materialize": 2}
-    want, _ = batch_encode(x, CFG, "cbr", rate_kbps=128.0)
+    want, _ = batch_encode(x, CFG, "cbr", rate_kbps=128.0, device="cpu")
     assert torch.equal(got.window_ctrl.cpu(), want.window_ctrl)
     assert int(got.size_bits.max()) <= int(cbr_bit_budget(CFG, 128.0))
     # analysis floats round differently on the card: sizes within 1 %
@@ -113,7 +122,7 @@ def test_encode_path_on_card_matches_cpu(dev):
 def _streams(x, cfg):
     """The CPU port's CBR-128 encode of x [B, T, C, N], packed into
     streams as chip_smoke.py packs them: (streams, window bytes, sizes)."""
-    out, _ = batch_encode(torch.from_numpy(x), cfg, "cbr", rate_kbps=128.0)
+    out, _ = batch_encode(x, cfg, "cbr", rate_kbps=128.0, device="cpu")
     streams, _, win, sizes = pack_streams(out)
     return streams, win, sizes
 
@@ -149,10 +158,10 @@ def test_decode_path_on_card_matches_cpu(dev):
     t = 3
     streams, win, sizes = _streams(make_corpus(8, t, N), CFG)
     dk.reset_launch_counts()
-    pcm, bits, corrupt = batch_decode(streams.to(dev), t, win, CFG)
+    pcm, bits, corrupt = batch_decode(streams, t, win, CFG, device=dev)
     torch.cuda.synchronize()
     assert dk.launch_counts() == {"fsm": t, "rng_expand": t, "rng": 0}
-    pcm_c, bits_c, corrupt_c = batch_decode(streams, t, win, CFG)
+    pcm_c, bits_c, corrupt_c = batch_decode(streams, t, win, CFG, device="cpu")
     assert torch.equal(bits.cpu(), bits_c) and torch.equal(corrupt.cpu(), corrupt_c)
     assert not corrupt_c.any() and torch.equal((bits_c + 7) // 8 * 8, sizes)
     # the card's float32 matrix products sum in another order

@@ -28,8 +28,10 @@ from ulcx_torch.bitstream import fast_decode as tfd
 from ulcx_torch.codec import decoder as tdec
 from ulcx_torch.codec import transform_batched as ttb
 from ulcx_torch.parallel.mesh import batch_decode
+from ulcx_torch.utils.config import CodecConfig as TCodecConfig
 
 T = 4
+TCFG = TCodecConfig(rate_hz=44100, n_chan=C, block_size=N, use_pallas="on")  # CFG's, for the port
 PCM_RMS = 1e-5  # f32 summation order of the DCT products (XLA vs torch)
 
 
@@ -51,7 +53,7 @@ def _ulcx_decode_block(windows):
 
 def _port_decode_block(windows):
     seed = torch.full((windows.shape[0],), 1234567, dtype=torch.int32)
-    return tfd.decode_block_fast(torch.from_numpy(windows), seed, CFG)
+    return tfd.decode_block_fast(torch.from_numpy(windows), seed, TCFG)
 
 
 def test_fsm_records_and_flags_match_ulcx(enc, fuzz):
@@ -60,7 +62,7 @@ def test_fsm_records_and_flags_match_ulcx(enc, fuzz):
     _, streams, offs, _ = enc
     windows = np.concatenate([block_windows(streams, offs, W), fuzz])
     want = jax.jit(lambda w: jfd.fsm_records(w, CFG, interpret=True))(jnp.asarray(windows))
-    got = tfd.fsm_records(torch.from_numpy(windows), CFG)
+    got = tfd.fsm_records(torch.from_numpy(windows), TCFG)
     for name, w, g in zip(("rec", "code", "wc", "hdr", "consumed", "corrupt"), want, got):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
     assert P % 128 == 0  # ulcx places by matmul at this size
@@ -101,7 +103,8 @@ def test_decode_block_fast_matches_ulcx(enc):
 def test_block_imdct_batched_matches(n):
     """All 16 patterns x every transient scale class x every previous
     last-subblock size (0 at a stream's start), random coefs and laps."""
-    cfg = CodecConfig(rate_hz=44100, n_chan=C, block_size=n)
+    kw = dict(rate_hz=44100, n_chan=C, block_size=n)
+    cfg, tcfg = CodecConfig(**kw), TCodecConfig(**kw)
     rng = np.random.default_rng(n)
     prev = np.array([0, n, n // 2, n // 4, n // 8], np.int32)
     pats, prevs = np.meshgrid(np.arange(16), prev, indexing="ij")
@@ -114,7 +117,7 @@ def test_block_imdct_batched_matches(n):
         jnp.asarray(coefs), jnp.asarray(wc), jnp.asarray(lap), jnp.asarray(prev_ss))
     want = [np.asarray(w) for w in want]
     got = ttb.block_imdct_batched(torch.from_numpy(coefs), torch.from_numpy(wc),
-                                  torch.from_numpy(lap), torch.from_numpy(prev_ss), cfg)
+                                  torch.from_numpy(lap), torch.from_numpy(prev_ss), tcfg)
     for name, g, w in zip(("pcm", "lap"), got[:2], want[:2]):
         scale = np.abs(w).max(axis=(1, 2), keepdims=True)
         assert (np.abs(g.numpy() - w) <= 1e-5 * scale).all(), name
@@ -145,7 +148,7 @@ def test_batch_decode_matches_ulcx(enc, mode):
         streams, sizes = _vbr_streams(x)
     win = -(-int(sizes.max() // 8) // 64) * 64 + 64  # as bench.py sizes it
     pcm, bits, corrupt = jax.jit(lambda s: j_batch_decode(s, T, win, CFG))(jnp.asarray(streams))
-    g_pcm, g_bits, g_corrupt = batch_decode(torch.from_numpy(streams), T, win, CFG)
+    g_pcm, g_bits, g_corrupt = batch_decode(torch.from_numpy(streams), T, win, TCFG, device="cpu")
     np.testing.assert_array_equal(g_bits.numpy(), np.asarray(bits))
     np.testing.assert_array_equal(g_corrupt.numpy(), np.asarray(corrupt))
     assert not g_corrupt.any()
@@ -168,8 +171,8 @@ def test_fuzz_decode_block_matches_ulcx(fuzz):
     np.testing.assert_array_equal(g_coefs.numpy()[clean].view(np.uint32),
                                   coefs[clean].view(np.uint32))
     b = fuzz.shape[0]
-    carry = tdec.DecoderCarry.init(CFG, b)
-    pcm, _, _ = ttb.block_imdct_batched(g_coefs, g_wc, carry.lap, carry.prev_last_ss, CFG)
+    carry = tdec.DecoderCarry.init(TCFG, b, "cpu")
+    pcm, _, _ = ttb.block_imdct_batched(g_coefs, g_wc, carry.lap, carry.prev_last_ss, TCFG)
     assert torch.isfinite(tdec.inverse_ms(pcm)).all()
 
 
@@ -179,6 +182,6 @@ def test_fuzz_decode_block_matches_ulcx(fuzz):
     ({}, object(), "A.11"),
 ])
 def test_unserved_settings_raise(change, mesh, item):
-    cfg = CodecConfig(**{**dict(rate_hz=44100, n_chan=C, block_size=N), **change})
+    cfg = TCodecConfig(**{**dict(rate_hz=44100, n_chan=C, block_size=N), **change})
     with pytest.raises(NotImplementedError, match=item):
-        batch_decode(torch.zeros(2, 4096, dtype=torch.uint8), 1, 64, cfg, mesh=mesh)
+        batch_decode(torch.zeros(2, 4096, dtype=torch.uint8), 1, 64, cfg, mesh=mesh, device="cpu")

@@ -30,9 +30,11 @@ from ulcx_torch.codec.encoder import init_carry_batched as t_init
 from ulcx_torch.codec.encoder import max_block_bytes
 from ulcx_torch.parallel.mesh import batch_decode
 from ulcx_torch.parallel.mesh import batch_encode as t_batch_encode
+from ulcx_torch.utils.config import CodecConfig as TCodecConfig
 
 N, C, T = 256, 2, 3
-CFG = CodecConfig(rate_hz=44100, n_chan=C, block_size=N, use_pallas="on")
+KW = dict(rate_hz=44100, n_chan=C, block_size=N, use_pallas="on")
+CFG, TCFG = CodecConfig(**KW), TCodecConfig(**KW)  # ulcx's, the port's
 BUDGET = int(N * 128.0 * 1000.0 / 44100.0)
 MODES = {
     "cbr": {"rate_kbps": 128.0},
@@ -58,10 +60,10 @@ def _n_nz_ulcx(x, carry=None):
 
 
 def _n_nz_port(x, carry=None):
-    carry = t_init(CFG, x.shape[0]) if carry is None else carry
+    carry = t_init(TCFG, x.shape[0], "cpu") if carry is None else carry
     out = []
     for j in range(x.shape[1]):
-        carry, blk = t_analyze(carry, torch.from_numpy(x[:, j]), CFG)
+        carry, blk = t_analyze(carry, torch.from_numpy(x[:, j]), TCFG)
         out.append(blk.n_nz.numpy())
     return np.stack(out, 1)
 
@@ -78,7 +80,7 @@ def _decode_snr(x, sizes, data):
             nb = int(sizes[i, j]) // 8
             streams[i, off: off + nb] = data[i, j, :nb]
             off += nb
-    pcm, _, corrupt = batch_decode(torch.from_numpy(streams), t, win, CFG)
+    pcm, _, corrupt = batch_decode(torch.from_numpy(streams), t, win, TCFG, device="cpu")
     want = x[:, : t - 1]
     err = pcm.numpy()[:, 1:] - want
     return corrupt.numpy(), 10 * np.log10((want ** 2).sum() / (err ** 2).sum())
@@ -98,7 +100,7 @@ def n_nz_ulcx(x):
 def test_batch_encode_matches_ulcx(x, n_nz_ulcx, mode):
     kw = MODES[mode]
     want, _ = jax.jit(lambda b: j_batch_encode(b, CFG, mode, **kw))(jnp.asarray(x))
-    got, stats = t_batch_encode(torch.from_numpy(x), CFG, mode, **kw)
+    got, stats = t_batch_encode(torch.from_numpy(x), TCFG, mode, device="cpu", **kw)
     w_sizes, w_data = np.asarray(want.size_bits), np.asarray(want.data)
     g_sizes, g_data = got.size_bits.numpy(), got.data.numpy()
 
@@ -125,13 +127,13 @@ def test_stream_continues_from_ulcx_carry():
     full, _ = enc(jnp.asarray(x4))
     head, carry = enc(jnp.asarray(x4[:, :2]))
     carry_np = jax.tree_util.tree_map(np.asarray, carry)
-    tail, _ = t_encode_stream(torch.from_numpy(x4[:, 2:]), CFG, "cbr",
-                              carry=carry_from_numpy(carry_np), **kw)
+    tail, _ = t_encode_stream(torch.from_numpy(x4[:, 2:]), TCFG, "cbr",
+                              carry=carry_from_numpy(carry_np, "cpu"), **kw)
 
     w_sizes, w_data = np.asarray(full.size_bits), np.asarray(full.data)
     np.testing.assert_array_equal(tail.window_ctrl.numpy(), np.asarray(full.window_ctrl)[:, 2:])
     np.testing.assert_array_equal(
-        _n_nz_port(x4[:, 2:], carry_from_numpy(carry_np)), _n_nz_ulcx(x4)[:, 2:])
+        _n_nz_port(x4[:, 2:], carry_from_numpy(carry_np, "cpu")), _n_nz_ulcx(x4)[:, 2:])
     g_tail = tail.size_bits.numpy()
     assert (g_tail <= BUDGET).all()
     assert abs(int(g_tail.sum()) - int(w_sizes[:, 2:].sum())) <= 0.01 * int(w_sizes[:, 2:].sum())
@@ -146,9 +148,9 @@ def test_stream_continues_from_ulcx_carry():
 
 def test_scan_major_layout(x):
     """scan_major=True gives the same blocks, [T, B] first."""
-    a, _ = t_batch_encode(torch.from_numpy(x[:, :2]), CFG, "vbr", **MODES["vbr"])
-    b, _ = t_batch_encode(torch.from_numpy(x[:, :2]), CFG, "vbr", scan_major=True,
-                          **MODES["vbr"])
+    a, _ = t_batch_encode(torch.from_numpy(x[:, :2]), TCFG, "vbr", device="cpu", **MODES["vbr"])
+    b, _ = t_batch_encode(torch.from_numpy(x[:, :2]), TCFG, "vbr", scan_major=True,
+                          device="cpu", **MODES["vbr"])
     for u, v in zip(a, b):
         assert torch.equal(u, v.transpose(0, 1))
 
@@ -158,6 +160,6 @@ def test_scan_major_layout(x):
     {"flat_stream": True}, {"transform_backend": "fact"}, {"matmul_max_n": 128},
 ])
 def test_unported_settings_raise(change):
-    cfg = CodecConfig(**{**dict(rate_hz=44100, n_chan=C, block_size=N), **change})
+    cfg = TCodecConfig(**{**dict(rate_hz=44100, n_chan=C, block_size=N), **change})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_batch_encode(torch.zeros(8, 1, C, N), cfg, "cbr", rate_kbps=128.0)
+        t_batch_encode(torch.zeros(8, 1, C, N), cfg, "cbr", rate_kbps=128.0, device="cpu")

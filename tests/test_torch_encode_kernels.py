@@ -24,8 +24,10 @@ from ulcx.bitstream import fast_encode as jfe
 from ulcx.bitstream import pallas_encode3 as pe3
 from ulcx_torch.bitstream import encode_kernels as ek
 from ulcx_torch.bitstream import fast_encode as tfe
+from ulcx_torch.utils.config import CodecConfig as TCodecConfig
 
 P = C * N
+TCFG = TCodecConfig(rate_hz=44100, n_chan=C, block_size=N)  # CFG's, for the port
 B = 8
 # every window pattern test_pallas_encode.py lists, plus one more
 WCS = [0x10, 0x28, 0x59, 0xFB, 0x3A, 0x6C, 0x8B, 0x10]
@@ -184,12 +186,12 @@ def test_materialize_and_sizes_match_ulcx():
     fbt = tfe.FastBlockData(*(torch.from_numpy(np.array(x)) for x in fbj))
     nn = _counts(0)
     want = np.asarray(jfe.total_sizes(fbj, jnp.asarray(nn), CFG, interpret=True))
-    got = tfe.total_sizes(fbt, torch.from_numpy(nn), CFG)
+    got = tfe.total_sizes(fbt, torch.from_numpy(nn), TCFG)
     np.testing.assert_array_equal(got.numpy(), want)
 
     n_out = nn[:, 3]
     ws, wb = jfe.materialize_fast(fbj, jnp.asarray(n_out), CFG, 2 * C * N, interpret=True)
-    gs, gb = tfe.materialize_fast(fbt, torch.from_numpy(n_out), CFG, 2 * C * N)
+    gs, gb = tfe.materialize_fast(fbt, torch.from_numpy(n_out), TCFG, 2 * C * N)
     np.testing.assert_array_equal(gs.numpy(), np.asarray(ws))
     np.testing.assert_array_equal(gb.numpy(), np.asarray(wb))
 
@@ -202,3 +204,53 @@ def test_cuda_wrappers_refuse_bad_inputs():
         ek.p1(pv["t"], pv["c"], pv["key"], pv["coef"], pv["aux"].to("meta"))
     with pytest.raises(ValueError):
         ek.p3_size(pv["thr"], pv["aux"], torch.empty(P, B, 8, dtype=torch.int32, device="meta"))
+
+
+def _served_positions():
+    """Every P = n_chan * block_size <= 32768 the kernel path serves."""
+    return sorted({c * (256 << s) for s in range(8) for c in range(1, 256)
+                   if c * (256 << s) <= 32768})
+
+
+@pytest.mark.parametrize("b", [1, 13, 128, 512, 2048])
+def test_walk_geometry_covers_once(b):
+    """The p2/p3 kernels' launch geometry: shared memory within Hopper's
+    per-block limit, and the stream tiles, position chunks and
+    half-height line tiles each cover their range exactly once (so the
+    tiles cover every (stream, position) once)."""
+    streams = np.zeros(b, np.int64)
+    for b0, ns in ek.stream_tiles(b):
+        assert 1 <= ns <= ek.STREAM_TILE and b0 % ek.STREAM_TILE == 0
+        streams[b0:b0 + ns] += 1
+    assert (streams == 1).all()
+    for n_pos in _served_positions():
+        for kind in ("p2", "p3_size", "p3_materialize"):
+            g = ek.walk_geometry(kind, n_pos, b)
+            assert g["smem"] <= ek.SMEM_LIMIT, (kind, g["smem"])
+            assert g["grid"] == len(ek.stream_tiles(b)) and g["threads"] % 32 == 0
+            pos = np.zeros(n_pos, np.int64)
+            lines = np.zeros(n_pos // 2, np.int64)
+            chunks = ek.walk_chunks(n_pos, g["chunk"], kind == "p2")
+            for lo, hi in chunks:
+                assert 0 < hi - lo <= g["chunk"]
+                pos[lo:hi] += 1
+                if kind != "p2":  # forward: lines start on a position pair
+                    assert lo % 2 == 0
+                    lines[lo // 2:(hi + 1) // 2] += 1
+            assert (pos == 1).all(), (kind, n_pos)
+            if kind != "p2":
+                assert (lines == 1).all(), (kind, n_pos)
+            order = [lo for lo, _ in chunks]
+            assert order == sorted(order, reverse=kind == "p2")
+
+
+def test_walk_smem_matches_layout():
+    """The byte counts the entry points check, by hand at CHUNK = 128:
+    per position 4 streams x 4 bytes per [P, B] plane and 32 walkers x 4
+    bytes per [P, B, 8] plane or pre-pass word, two stages."""
+    assert ek.walk_smem_bytes("p2", 128) == 2 * 128 * (3 * 16 + 3 * 128) + 256
+    assert ek.walk_smem_bytes("p3_size", 128) == 2 * 128 * (2 * 16 + 2 * 128)
+    assert ek.walk_smem_bytes("p3_materialize", 128) == 2 * (
+        128 * (16 + 128 + 2 * 128) + 129 * 16 + 4 * 64 * 16)
+    with pytest.raises(ValueError):
+        ek.walk_smem_bytes("p1", 128)

@@ -29,9 +29,11 @@ from ulcx.codec.encoder import max_block_bytes
 from ulcx.utils.config import CodecConfig
 from ulcx_torch.analysis.block import AnalyzedBlock
 from ulcx_torch.bitstream import fast_encode as tfe
+from ulcx_torch.utils.config import CodecConfig as TCodecConfig
 
 N, C, T = 256, 2, 3
-CFG = CodecConfig(rate_hz=44100, n_chan=C, block_size=N, use_pallas="on")
+KW = dict(rate_hz=44100, n_chan=C, block_size=N, use_pallas="on")
+CFG, TCFG = CodecConfig(**KW), TCodecConfig(**KW)  # ulcx's, the port's
 MAX_BYTES = max_block_bytes(CFG)
 
 
@@ -69,7 +71,7 @@ def test_search_materialize_identical(blocks, step, rate_kbps):
     wn, ws, wd = (np.asarray(v) for v in _SEARCH(jb, jb.n_nz, jnp.asarray(budget)))
     fb = tfe.FastBlockData(*(torch.from_numpy(np.array(v)) for v in _PREPARE(jb)))
     gn, gs, gd = tfe.search_materialize_fast(
-        fb, torch.from_numpy(blk.n_nz), torch.from_numpy(budget), CFG, MAX_BYTES)
+        fb, torch.from_numpy(blk.n_nz), torch.from_numpy(budget), TCFG, MAX_BYTES)
     np.testing.assert_array_equal(gn.numpy(), wn)
     np.testing.assert_array_equal(gs.numpy(), ws)
     np.testing.assert_array_equal(gd.numpy(), wd)
@@ -86,7 +88,7 @@ def test_port_prepare_within_bounds(blocks, step):
     _, ws, _ = (np.asarray(v) for v in _SEARCH(jb, jb.n_nz, jnp.asarray(budget)))
     tb = _port_block(blk)
     _, gs, _ = tfe.search_materialize_fast(
-        tfe.prepare_fast(tb, CFG), tb.n_nz, torch.from_numpy(budget), CFG, MAX_BYTES)
+        tfe.prepare_fast(tb, TCFG), tb.n_nz, torch.from_numpy(budget), TCFG, MAX_BYTES)
     assert (gs.numpy() <= budget).all()
     assert abs(int(gs.sum()) - int(ws.sum())) <= 0.01 * int(ws.sum())
 
@@ -99,7 +101,7 @@ def test_prepare_fast_matches(blocks):
     lines (on flat tails its sign is noise in either package)."""
     blk = blocks[1]
     want = jax.tree_util.tree_map(np.asarray, _PREPARE(jax.tree_util.tree_map(jnp.asarray, blk)))
-    got = tfe.prepare_fast(_port_block(blk), CFG)
+    got = tfe.prepare_fast(_port_block(blk), TCFG)
     for name in ("coef", "aux", "key", "window_ctrl", "header", "n_header"):
         np.testing.assert_array_equal(getattr(got, name).numpy(), getattr(want, name), name)
     np.testing.assert_allclose(got.amp_noise.numpy(), want.amp_noise, rtol=1e-2, atol=0)

@@ -32,6 +32,7 @@ from ulcx_torch.ops import patterns as tpatterns
 from ulcx_torch.ops import quant as tquant
 from ulcx_torch.ops import scanutil as tscan
 from ulcx_torch.ops.fastlog import fast_log as tfast_log
+from ulcx_torch.utils.config import CodecConfig as TCodecConfig
 
 # summation order of the f32 products differs between XLA and torch
 RTOL = 1e-5
@@ -141,7 +142,8 @@ def test_pattern_and_segment_tables_match(n):
 
 def test_overlap_lookups_match():
     n = 2048
-    cfg = CodecConfig(rate_hz=44100, n_chan=2, block_size=n)
+    kw = dict(rate_hz=44100, n_chan=2, block_size=n)
+    cfg, tcfg = CodecConfig(**kw), TCodecConfig(**kw)
     rng = np.random.default_rng(4)
     wc = (rng.integers(0, 16, 64) << 4 | rng.integers(0, 16, 64)).astype(np.int32)
     prev = rng.choice([256, 512, 1024, 2048], 64).astype(np.int32)
@@ -152,7 +154,7 @@ def test_overlap_lookups_match():
     np.testing.assert_array_equal(ttransform.last_subblock_size(wct, n).numpy(),
                                   np.asarray(jtransform.last_subblock_size(jnp.asarray(wc), n)))
     want = jtb.boundary_overlaps_batched(jnp.asarray(wc), jnp.asarray(prev), jnp.asarray(nxt), cfg)
-    got = ttb.boundary_overlaps_batched(wct, torch.from_numpy(prev), torch.from_numpy(nxt), cfg)
+    got = ttb.boundary_overlaps_batched(wct, torch.from_numpy(prev), torch.from_numpy(nxt), tcfg)
     assert ttb.candidate_list() == jtb.candidate_list()  # same candidate order
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -12,12 +12,14 @@ materialization, whose four serial walks are CUDA C++ kernels
 ``codec.decoder.decode_stream_batched`` -> per block
 ``bitstream.fast_decode.decode_block_fast`` (FSM kernel, record
 scatter, RNG-expand kernel; ``csrc/decode_walks.cu``) ->
-``codec.transform_batched.block_imdct_batched`` -> inverse M/S. Every
-function follows the device of its input tensors: on the CPU the
-kernels run their plain PyTorch versions, on a CUDA device the kernels.
+``codec.transform_batched.block_imdct_batched`` -> inverse M/S. The
+entry points run on the card (``device="cuda"``) unless the caller asks
+for ``device="cpu"``; below them every function follows the device of
+its input tensors: on the CPU the kernels run their plain PyTorch
+versions, on a CUDA device the kernels.
 
-Nothing here imports jax; the one ``ulcx`` module reused is the
-jax-free ``ulcx.utils.config``.
+Nothing here imports jax or ``ulcx``: the port keeps its own copy of
+what it needs (``utils.config``, ``ops.patterns``, ``bitstream.tables``).
 """
 
 __version__ = "0.1.0"

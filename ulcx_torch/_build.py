@@ -38,9 +38,9 @@ NVCC_FLAGS = (
 # stream last and returns cudaGetLastError() as an int
 _SIGNATURES = {
     "ulcx_p1": (6, 2),
-    "ulcx_p2": (7, 2),
-    "ulcx_p3_size": (4, 2),
-    "ulcx_p3_materialize": (11, 3),
+    "ulcx_p2": (7, 5),
+    "ulcx_p3_size": (4, 5),
+    "ulcx_p3_materialize": (11, 6),
     "ulcx_fsm": (7, 4),
     "ulcx_rng_expand": (4, 2),
     "ulcx_rng": (4, 2),

@@ -30,7 +30,7 @@ class EncoderCarry(NamedTuple):
     prev_last_ss: torch.Tensor      # [B] int32
 
     @staticmethod
-    def init(cfg: CodecConfig, batch: int, device=None):
+    def init(cfg: CodecConfig, batch: int, device="cuda"):
         return EncoderCarry(
             sample_prev=torch.zeros(
                 batch, cfg.n_chan, cfg.block_size, dtype=torch.float32, device=device
@@ -50,7 +50,7 @@ class AnalyzedBlock(NamedTuple):
     n_nz: torch.Tensor          # [B] int32 (codeable coefficient count)
 
 
-def carry_from_numpy(carry, device=None) -> EncoderCarry:
+def carry_from_numpy(carry, device="cuda") -> EncoderCarry:
     """An ``ulcx`` EncoderCarry with batched numpy leaves -> the port's
     carry on ``device``. Fields are read by name."""
 

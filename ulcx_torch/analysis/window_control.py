@@ -45,7 +45,7 @@ class TransientState(NamedTuple):
     seg_w: torch.Tensor       # [B, 16] f32
 
     @staticmethod
-    def init(batch: int, device=None):
+    def init(batch: int, device="cuda"):
         z = torch.zeros(batch, dtype=torch.float32, device=device)
         z16 = torch.zeros(batch, 16, dtype=torch.float32, device=device)
         return TransientState(z, z.clone(), z.clone(), z16, z16.clone())

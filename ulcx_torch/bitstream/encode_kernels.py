@@ -39,6 +39,16 @@ from ulcx_torch.ops.quant import sqrt_rn
 N_CAND = 8
 SENT = 1 << 20  # "no position" sentinel (> any p)
 
+# Launch geometry of the p2/p3 kernels (csrc/encode_walks.cu): a CTA
+# walks STREAM_TILE streams x 8 candidates in warp 0 while HELPER_WARPS
+# warps fill a ring of STAGES shared-memory stages of CHUNK positions
+# each and run the carry-free pre-pass over them.
+STREAM_TILE = 4
+CHUNK = 128
+STAGES = 2
+HELPER_WARPS = 7
+SMEM_LIMIT = 232_448  # bytes of shared memory one block may take on Hopper
+
 # BuildQuantizer constants (reference ulcEncoder_Encode.c:50-87)
 _BQ_A = float(np.float32(float.fromhex("0x1.657006p2")))
 _INV_LN2 = float(np.float32(float.fromhex("0x1.715476p0")))
@@ -68,6 +78,72 @@ def _i32(x: torch.Tensor) -> torch.Tensor:
 
 def _kept(key_p, t, c, p: int):
     return (key_p > t) | ((key_p == t) & (p <= c))
+
+
+# --- launch geometry --------------------------------------------------------
+
+
+def _arr(n: int) -> int:
+    """Bytes of n 4-byte elements rounded up to 16 (``arr`` in the .cu)."""
+    return -(-4 * n // 16) * 16
+
+
+def walk_smem_bytes(kind: str, chunk: int) -> int:
+    """Dynamic shared memory of one p2/p3 CTA: STAGES stages of the
+    layouts ``p2_layout``/``p3_layout`` in csrc/encode_walks.cu, which
+    the entry points check against this number."""
+    rows, cands, half = _arr(chunk * STREAM_TILE), _arr(chunk * STREAM_TILE * N_CAND), chunk // 2
+    if kind == "p2":  # key, thr, aux, s12 | pre-pass words | state rows; then t, c
+        return STAGES * (3 * rows + 3 * cands) + _arr(2 * STREAM_TILE * N_CAND)
+    if kind == "p3_size":  # aux, thr, state | pre-pass words
+        return STAGES * (2 * rows + 2 * cands)
+    if kind == "p3_materialize":
+        # aux, state, coef (+1 look-ahead row), ampn, hfamp, hfmeta | two
+        # pre-pass words, HF amplitudes
+        lines = _arr(half * STREAM_TILE)
+        return STAGES * (rows + cands + _arr((chunk + 1) * STREAM_TILE) + 3 * lines
+                         + 2 * cands + lines)
+    raise ValueError(f"no walk kind {kind!r}")
+
+
+def walk_geometry(kind: str, n_pos: int, b: int, chunk: int = CHUNK,
+                  helper_warps: int = HELPER_WARPS) -> dict:
+    """Launch geometry of the p2/p3 kernels at P = n_pos, B = b: the
+    stream tile, chunk length, ring stages, threads and shared-memory
+    bytes per CTA, and the grid (CTAs ``stream_tiles``, each walking the
+    chunks ``walk_chunks``)."""
+    if n_pos < 1 or b < 1:
+        raise ValueError(f"empty walk: P={n_pos}, B={b}")
+    return {
+        "streams": STREAM_TILE, "chunk": chunk, "stages": STAGES,
+        "threads": 32 * (1 + helper_warps), "smem": walk_smem_bytes(kind, chunk),
+        "grid": -(-b // STREAM_TILE),
+    }
+
+
+def walk_chunks(n_pos: int, chunk: int, reverse: bool) -> list:
+    """[(lo, hi)] position ranges of the chunks in walk order; p2 walks
+    from high p to low (``chunk_span`` in the .cu)."""
+    n = -(-n_pos // chunk)
+    if reverse:
+        return [(max(n_pos - (k + 1) * chunk, 0), n_pos - k * chunk) for k in range(n)]
+    return [(k * chunk, min((k + 1) * chunk, n_pos)) for k in range(n)]
+
+
+def stream_tiles(b: int) -> list:
+    """[(b0, ns)] streams of each CTA: b0 = blockIdx * STREAM_TILE."""
+    return [(b0, min(STREAM_TILE, b - b0)) for b0 in range(0, b, STREAM_TILE)]
+
+
+def _geometry_ints(kind: str, n_pos: int, b: int) -> tuple:
+    g = walk_geometry(kind, n_pos, b)
+    return g["chunk"], g["threads"], g["smem"]
+
+
+def _check_aligned(name: str, x) -> None:
+    """The [P, B, 8] planes move in 16-byte copies."""
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: data pointer not 16-byte aligned")
 
 
 # --- plain versions ---------------------------------------------------------
@@ -317,8 +393,10 @@ def p2(t, c, key, thr, aux, s12):
                              ("key", key, _I32, (n_pos, b)), ("thr", thr, _I32, (n_pos, b)),
                              ("aux", aux, _I32, (n_pos, b)), ("s12", s12, _I32, (n_pos, b, N_CAND))):
         _check(name, x, dt, shp)
+    _check_aligned("s12", s12)
     state = torch.empty((n_pos, b, N_CAND), dtype=_I32, device=key.device)
-    _launch("ulcx_p2", (t, c, key, thr, aux, s12, state), (b, n_pos), key.device)
+    _launch("ulcx_p2", (t, c, key, thr, aux, s12, state),
+            (b, n_pos, *_geometry_ints("p2", n_pos, b)), key.device)
     p2.launches += 1
     return state
 
@@ -332,8 +410,10 @@ def p3_size(thr, aux, state):
     for name, x, dt, shp in (("thr", thr, _I32, (n_pos, b)), ("aux", aux, _I32, (n_pos, b)),
                              ("state", state, _I32, (n_pos, b, N_CAND))):
         _check(name, x, dt, shp)
+    _check_aligned("state", state)
     bits = torch.empty((b, N_CAND), dtype=_I32, device=aux.device)
-    _launch("ulcx_p3_size", (thr, aux, state, bits), (b, n_pos), aux.device)
+    _launch("ulcx_p3_size", (thr, aux, state, bits),
+            (b, n_pos, *_geometry_ints("p3_size", n_pos, b)), aux.device)
     p3_size.launches += 1
     return bits
 
@@ -354,6 +434,7 @@ def p3_materialize(coef, ampn, hfamp, hfmeta, aux, state, hdr, n_words: int):
                              ("aux", aux, _I32, (n_pos, b)),
                              ("state", state, _I32, (n_pos, b, N_CAND)), ("hdr", hdr, _I32, (b,))):
         _check(name, x, dt, shp)
+    _check_aligned("state", state)
     dev = aux.device
     bits = torch.empty((b, N_CAND), dtype=_I32, device=dev)
     words = torch.zeros((b, N_CAND, n_words), dtype=_I32, device=dev)
@@ -362,7 +443,7 @@ def p3_materialize(coef, ampn, hfamp, hfmeta, aux, state, hdr, n_words: int):
     _launch(
         "ulcx_p3_materialize",
         (aux, state, coef, ampn, hfamp, hfmeta, hdr, bits, words, freg, fwc),
-        (b, n_pos, n_words), dev,
+        (b, n_pos, n_words, *_geometry_ints("p3_materialize", n_pos, b)), dev,
     )
     p3_materialize.launches += 1
     return bits, words, freg, fwc

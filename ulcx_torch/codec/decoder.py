@@ -29,7 +29,7 @@ class DecoderCarry(NamedTuple):
     rng: torch.Tensor           # [B] int32, the u32 noise-RNG state's bits
 
     @staticmethod
-    def init(cfg: CodecConfig, batch: int, device=None):
+    def init(cfg: CodecConfig, batch: int, device="cuda"):
         return DecoderCarry(
             lap=torch.zeros(batch, cfg.n_chan, cfg.block_size // 2, dtype=torch.float32,
                             device=device),

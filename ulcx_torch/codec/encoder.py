@@ -49,7 +49,7 @@ def cbr_bit_budget(cfg: CodecConfig, rate_kbps) -> torch.Tensor:
     return ((n * rate) * k).to(torch.int32)
 
 
-def init_carry_batched(cfg: CodecConfig, batch: int, device=None) -> EncoderCarry:
+def init_carry_batched(cfg: CodecConfig, batch: int, device="cuda") -> EncoderCarry:
     return EncoderCarry.init(cfg, batch, device)
 
 

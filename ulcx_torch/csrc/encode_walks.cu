@@ -1,38 +1,69 @@
 // Encode-pass walks of the ULC bitstream for Hopper (sm_90a).
 //
 // Four kernels, one per Pallas call of ulcx/bitstream/pallas_encode3.py:
-//   p1_kernel            <- _p1 (forward zone scan; pallas_call at :546)
-//   p2_kernel            <- _p2 (reverse backfill; :559)
-//   p3_kernel<false>     <- _p3, size-only (:587)
-//   p3_kernel<true>      <- _p3, materialize (:601)
+//   p1_kernel            <- _p1 (forward zone scan, :124; pallas_call at :546)
+//   p2_kernel            <- _p2 (reverse backfill, :186; :559)
+//   p3_kernel<false>     <- _p3, size-only (:254; :587)
+//   p3_kernel<true>      <- _p3, materialize (:254; :601)
 // Each computes what its Pallas kernel computes, not its block
-// structure: one thread per (stream, candidate) walks all P positions
-// serially, so the TPU grid's chunk loop, its VMEM scratch carry and
-// the unrolled chunk bodies have no counterpart here.
+// structure: the TPU grid's chunk loop, its VMEM scratch carry and the
+// unrolled chunk bodies have no counterpart here.
 //
 // Layouts (the wrappers in bitstream/encode_kernels.py check them):
 //   per-position planes  [P, B]    stream fastest (key, coef, aux, thr)
 //   line planes          [P/2, B]  read at p >> 1 (ampn, hfamp, hfmeta)
-//   per-candidate        [B, 8]    thread tid = b * 8 + cand (t, c, bits)
-//   state planes         [P, B, 8] (s12, state): a warp writes 128
-//                                   contiguous bytes per position
+//   per-candidate        [B, 8]    walker b * 8 + cand (t, c, bits)
+//   state planes         [P, B, 8] (s12, state): 4 streams' rows are
+//                                   128 contiguous bytes per position
 //   words                [B, 8, n_words]
 //
-// Bound: each walk is a serial, latency-bound recurrence over P with one
-// thread per (stream, candidate). At B = 512 that is 4096 threads, about
-// 2 % of the card's 270,336 resident-thread slots (132 SMs x 2048), so
-// the card idles while a few warps per SM step through P dependent
-// iterations. This first design does nothing about that yet (no
-// warp-cooperative walk, no overlap across ladder rounds); filling the
-// card is later work (PERF.md, open questions).
+// p1_kernel: one thread per (stream, candidate) walks all P positions
+// and reads each step's planes straight from device memory, so a step
+// costs about one memory latency (1.2 ms at B = 512, P = 4096, against a
+// bound of 27.5 us: 92.3 MB at 3.35 TB/s). Not redesigned yet.
+//
+// p2_kernel and p3_kernel: bound and design. Bytes (each input read
+// once, each output written once) at the flagship shape B = 512,
+// P = 4096, over 3.35 TB/s: p2 159.4 MB -> 47.6 us; p3 size 83.9 MB ->
+// 25.0 us; p3 materialize 130.0 MB -> 38.8 us. Each walk is a serial
+// recurrence over P with carried state, so none reaches that bound:
+// what sets its time is the latency of one step of the carried chain.
+// The first design (one warp per block, loads straight from device
+// memory in the chain) paid one memory latency a step: 3.29, 2.19 and
+// 5.67 ms. This design takes the memory out of the chain:
+//   - a CTA holds a tile of 4 streams x 8 candidates: warp 0 is the 32
+//     walkers, warps 1.. are helpers (the launch geometry, chunk length
+//     and shared-memory bytes come from encode_kernels.walk_geometry);
+//   - the helpers fill a 2-stage ring of shared-memory stages, each a
+//     chunk of L positions (p2 from high p to low, as it walks; p3 with
+//     one overlap row of coef for the p+1 look-ahead, and half-height
+//     tiles of the line planes), with cp.async (4-byte copies for the
+//     [P, B] planes, so any B is served; 16-byte copies for the
+//     [P, B, 8] planes, whose 32-byte rows are always aligned);
+//   - the helpers run a carry-free pre-pass over each chunk, data-
+//     parallel over (position, walker), that packs into one or two
+//     shared-memory words everything that does not depend on the
+//     carried state (p2: kept, qi, split, thr & 63, p + segdelta; p3:
+//     the event class, run length and count, segment and tail bits,
+//     and, when materializing, the coefficient and noise nybbles, whose
+//     three cq_unsigned square roots thereby leave the chain);
+//   - the walkers step through the previous chunk reading one or two
+//     words from shared memory and update only the carry; p2 writes its
+//     state rows to a shared-memory stage that the helpers store as
+//     16-byte rows, p3 materialize stores each completed word at its
+//     index;
+//   - one __syncthreads a chunk separates load (chunk k+1), pre-pass
+//     (k), walk (k-1) and store (k-2).
 //
 // Numerics: built without --use_fast_math, so logf/sqrtf are the
 // accurate ones and denormals are not flushed behind the code's back
 // (the zone scan flushes denormal magnitudes itself, as the TPU
-// reference does). Float products and sums use
-// the _rn intrinsics so that nvcc cannot contract them into FMAs: the
-// plain PyTorch versions round each operation separately.
+// reference does). Float products and sums use the _rn intrinsics so
+// that nvcc cannot contract them into FMAs: the plain PyTorch versions
+// round each operation separately. Every float -> int conversion is
+// clipped first.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,8 +71,13 @@ namespace {
 
 constexpr int kCand = 8;
 constexpr int kSent = 1 << 20;   // "no position" sentinel (> any p)
-// one warp per block: B = 512 gives 128 blocks, spread over 128 SMs
+// p1: one warp per block; B = 512 gives 128 blocks, spread over 128 SMs
 constexpr int kThreads = 32;
+// p2/p3: streams per CTA; warp 0 holds their kTile * kCand walkers
+constexpr int kTile = 4;
+constexpr int kWalkers = kTile * kCand;
+constexpr int kStages = 2;
+constexpr int kMaxThreads = 256;
 // BuildQuantizer constants (reference ulcEncoder_Encode.c:50-87):
 // qi = clip(floor(A - log2(max)), 5, 31), A = 5 + log2(1.5)
 constexpr float kBqA = 0x1.657006p2f;
@@ -104,37 +140,201 @@ __global__ void p1_kernel(const int* __restrict__ t, const int* __restrict__ c,
   }
 }
 
+// --- shared machinery of the p2/p3 walks ------------------------------------
+
+// Bytes of n 4-byte elements, rounded up to 16 so every array starts
+// 16-byte aligned. Mirrored by encode_kernels.walk_smem_bytes.
+__host__ __device__ constexpr int arr(int n) { return (n * 4 + 15) / 16 * 16; }
+
+// One stage's arrays, as byte offsets from the stage's base; the ring
+// holds kStages stages back to back, then `extra` bytes.
+struct P2Layout {
+  int key, thr, aux, s12, pp, out, stage, tc, total;
+};
+__host__ __device__ inline P2Layout p2_layout(int L) {
+  P2Layout l{};
+  l.key = 0;
+  l.thr = l.key + arr(L * kTile);
+  l.aux = l.thr + arr(L * kTile);
+  l.s12 = l.aux + arr(L * kTile);
+  l.pp = l.s12 + arr(L * kWalkers);
+  l.out = l.pp + arr(L * kWalkers);
+  l.stage = l.out + arr(L * kWalkers);
+  l.tc = kStages * l.stage;
+  l.total = l.tc + arr(2 * kWalkers);
+  return l;
+}
+
+struct P3Layout {
+  int aux, thr, st, coef, ampn, hfamp, hfmeta, pp0, pp1, hf, stage, total;
+};
+__host__ __device__ inline P3Layout p3_layout(int L, bool mat) {
+  P3Layout l{};
+  const int half = L / 2;
+  l.aux = 0;
+  l.thr = l.aux + arr(L * kTile);
+  l.st = l.thr + (mat ? 0 : arr(L * kTile));
+  l.coef = l.st + arr(L * kWalkers);
+  l.ampn = l.coef + (mat ? arr((L + 1) * kTile) : 0);
+  l.hfamp = l.ampn + (mat ? arr(half * kTile) : 0);
+  l.hfmeta = l.hfamp + (mat ? arr(half * kTile) : 0);
+  l.pp0 = l.hfmeta + (mat ? arr(half * kTile) : 0);
+  l.pp1 = l.pp0 + arr(L * kWalkers);
+  l.hf = l.pp1 + (mat ? arr(L * kWalkers) : 0);
+  l.stage = l.hf + (mat ? arr(half * kTile) : 0);
+  l.total = kStages * l.stage;
+  return l;
+}
+
+// Positions [lo, hi) of chunk k in walk order.
+struct Span {
+  int lo, hi;
+};
+__device__ __forceinline__ Span chunk_span(int k, int L, int P, bool reverse) {
+  if (reverse) {
+    const int hi = P - k * L;
+    return {max(hi - L, 0), hi};
+  }
+  const int lo = k * L;
+  return {lo, min(lo + L, P)};
+}
+
+// The helper warps' own barrier (warp 0 walks meanwhile).
+__device__ __forceinline__ void helpers_sync(int nh) {
+  asm volatile("bar.sync 1, %0;" ::"r"(nh) : "memory");
+}
+
+// rows [row0, row0 + n) x streams [b0, b0 + ns) of a [rows, B] plane ->
+// dst[i * kTile + j], one 4-byte cp.async each
+__device__ __forceinline__ void copy_rows(int* dst, const int* src, int row0, int n, int B,
+                                          int b0, int ns, int h, int nh) {
+  for (int e = h; e < n * ns; e += nh) {
+    const int i = e / ns, j = e - i * ns;
+    __pipeline_memcpy_async(dst + i * kTile + j, src + static_cast<size_t>(row0 + i) * B + b0 + j,
+                            4);
+  }
+}
+
+// rows [row0, row0 + n) of a [P, B, 8] plane, streams [b0, b0 + ns) ->
+// dst[i * kWalkers + lane], 16-byte cp.async pieces
+__device__ __forceinline__ void copy_cand_rows(int* dst, const int* src, int row0, int n, int B,
+                                               int b0, int ns, int h, int nh) {
+  const int per_row = ns * 2;
+  for (int e = h; e < n * per_row; e += nh) {
+    const int i = e / per_row, q = e - i * per_row;
+    __pipeline_memcpy_async(dst + i * kWalkers + q * 4,
+                            src + (static_cast<size_t>(row0 + i) * B + b0) * kCand + q * 4, 16);
+  }
+}
+
+// --- p2 ---------------------------------------------------------------------
+
 // Reverse backfill: zone ends and each zone's quantizer; a kept
 // position is coded when q >= qmin(|coef|, 2.5) from the packed
 // threshold plane. Emits next_coded_pos (16b) | q << 16 | coded << 21.
-__global__ void p2_kernel(const int* __restrict__ t, const int* __restrict__ c,
-                          const int* __restrict__ key, const int* __restrict__ thr,
-                          const int* __restrict__ aux, const int* __restrict__ s12,
-                          int* __restrict__ state, int B, int P) {
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= B * kCand) return;
-  const int b = tid / kCand, cand = tid % kCand;
-  const int tt = t[tid], cc = c[tid];
+//
+// Pre-pass word: kept | (qi | split << 5) << 1 | (thr & 63) << 7 |
+// (p + segdelta) << 13 (p + segdelta < 2^17).
+__global__ void __launch_bounds__(kMaxThreads)
+    p2_kernel(const int* __restrict__ t, const int* __restrict__ c, const int* __restrict__ key,
+              const int* __restrict__ thr, const int* __restrict__ aux,
+              const int* __restrict__ s12, int* __restrict__ state, int B, int P, int L) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const P2Layout ly = p2_layout(L);
+  const int b0 = blockIdx.x * kTile, ns = min(kTile, B - b0);
+  const int nchunks = (P + L - 1) / L;
+  const int tid = threadIdx.x, nh = blockDim.x - kWalkers, h = tid - kWalkers;
+  int* tc_s = reinterpret_cast<int*>(smem + ly.tc);
+  auto arr_at = [&](int k, int off) { return reinterpret_cast<int*>(smem + (k & 1) * ly.stage + off); };
+
+  auto load = [&](int k) {
+    const Span s = chunk_span(k, L, P, true);
+    const int n = s.hi - s.lo;
+    copy_rows(arr_at(k, ly.key), key, s.lo, n, B, b0, ns, h, nh);
+    copy_rows(arr_at(k, ly.thr), thr, s.lo, n, B, b0, ns, h, nh);
+    copy_rows(arr_at(k, ly.aux), aux, s.lo, n, B, b0, ns, h, nh);
+    copy_cand_rows(arr_at(k, ly.s12), s12, s.lo, n, B, b0, ns, h, nh);
+  };
+
+  if (tid >= kWalkers) {
+    for (int i = h; i < ns * kCand; i += nh) {
+      tc_s[i] = t[b0 * kCand + i];
+      tc_s[kWalkers + i] = c[b0 * kCand + i];
+    }
+    load(0);
+    __pipeline_commit();
+  }
+  __syncthreads();
+
+  const int lane = tid & 31;
   int nk = kSent, nk_split = 0, cur_qi = 31, q_next = 31, ncp = kSent;
-  for (int p = P - 1; p >= 0; --p) {
-    const size_t pb = static_cast<size_t>(p) * B + b;
-    const int segdelta = aux[pb] & 0xFFFF;
-    const bool kept = kept_at(key[pb], tt, cc, p);
-    const int s = s12[pb * kCand + cand];
-    if (kept && (nk >= kSent || nk_split == 1 || nk >= p + segdelta)) cur_qi = s & 0x1F;
-    const bool coded = kept && cur_qi >= (thr[pb] & 63);
-    if (coded) {
-      q_next = cur_qi;
-      ncp = p;
+  for (int k = 0; k <= nchunks + 1; ++k) {
+    if (tid < kWalkers) {
+      if (k >= 1 && k <= nchunks) {  // walk chunk k - 1, high p to low
+        const Span s = chunk_span(k - 1, L, P, true);
+        const uint32_t* pp = reinterpret_cast<const uint32_t*>(arr_at(k - 1, ly.pp));
+        int* out = arr_at(k - 1, ly.out);
+        int i = s.hi - s.lo - 1;
+        uint32_t wn = pp[i * kWalkers + lane];
+        for (; i >= 0; --i) {
+          const uint32_t w = wn;
+          if (i > 0) wn = pp[(i - 1) * kWalkers + lane];
+          const int p = s.lo + i;
+          const bool kept = w & 1u;
+          if (kept && (nk >= kSent || nk_split == 1 || nk >= static_cast<int>(w >> 13)))
+            cur_qi = (w >> 1) & 0x1F;
+          const bool coded = kept && cur_qi >= static_cast<int>((w >> 7) & 63);
+          if (coded) {
+            q_next = cur_qi;
+            ncp = p;
+          }
+          out[i * kWalkers + lane] =
+              min(max(ncp, 0), 0xFFFF) | (q_next << 16) | (static_cast<int>(coded) << 21);
+          if (kept) {
+            nk = p;
+            nk_split = (w >> 6) & 1;
+          }
+        }
+      }
+    } else {
+      if (k + 1 < nchunks) load(k + 1);
+      __pipeline_commit();
+      __pipeline_wait_prior(1);  // this thread's copies of chunk k landed
+      helpers_sync(nh);          // and every helper's
+      if (k < nchunks) {         // pre-pass of chunk k
+        const Span s = chunk_span(k, L, P, true);
+        const int* key_s = arr_at(k, ly.key);
+        const int* thr_s = arr_at(k, ly.thr);
+        const int* aux_s = arr_at(k, ly.aux);
+        const int* s12_s = arr_at(k, ly.s12);
+        uint32_t* pp = reinterpret_cast<uint32_t*>(arr_at(k, ly.pp));
+        for (int e = h; e < (s.hi - s.lo) * kWalkers; e += nh) {
+          const int i = e / kWalkers, wl = e % kWalkers, j = wl / kCand;
+          if (j >= ns) continue;
+          const int p = s.lo + i, x = i * kTile + j;
+          const bool kept = kept_at(key_s[x], tc_s[wl], tc_s[kWalkers + wl], p);
+          pp[e] = static_cast<uint32_t>(kept) | (static_cast<uint32_t>(s12_s[e] & 0x3F) << 1) |
+                  (static_cast<uint32_t>(thr_s[x] & 63) << 7) |
+                  (static_cast<uint32_t>(p + (aux_s[x] & 0xFFFF)) << 13);
+        }
+      }
+      if (k >= 2) {  // store chunk k - 2's state rows, 16 bytes a thread
+        const Span s = chunk_span(k - 2, L, P, true);
+        const int* out = arr_at(k - 2, ly.out);
+        const int per_row = ns * 2;
+        for (int e = h; e < (s.hi - s.lo) * per_row; e += nh) {
+          const int i = e / per_row, q = e - i * per_row;
+          *reinterpret_cast<int4*>(state + (static_cast<size_t>(s.lo + i) * B + b0) * kCand +
+                                   q * 4) =
+              *reinterpret_cast<const int4*>(out + i * kWalkers + q * 4);
+        }
+      }
     }
-    state[pb * kCand + cand] =
-        min(max(ncp, 0), 0xFFFF) | (q_next << 16) | (static_cast<int>(coded) << 21);
-    if (kept) {
-      nk = p;
-      nk_split = (s >> 5) & 1;
-    }
+    __syncthreads();
   }
 }
+
+// --- p3 ---------------------------------------------------------------------
 
 // Forward emission walk. Each position yields one of five events (coded
 // coefficient, rescue pair, noise run, short zero run, long zero run),
@@ -143,170 +343,297 @@ __global__ void p2_kernel(const int* __restrict__ t, const int* __restrict__ c,
 // threshold plane; materialize mode reads the value planes, packs the
 // nybbles through a u32 shift register and stores each completed word
 // at its index. The final partial register goes to index wcount.
+//
+// Pre-pass word 0: qq 0-4 | is_code 5 | gp 6 | ext_q 7 | body count
+// 8-10 | advance 11-20 | segment start 21 | tail possible 22 | HF
+// candidate (n_tail >= 16 and hfok) 23 | n_tail > 4 24 | 0 < n_tail <= 4
+// 25 | size mode: qmin(hfamp) 26-31. Word 1 (materialize): the four
+// event nybbles 0-15 | dec_t 16-23 | zero-tail nybble 24-27. Per (line,
+// stream) the HF amplitude, whose quantization needs the carried q.
 template <bool kMat>
-__global__ void p3_kernel(const int* __restrict__ thr, const int* __restrict__ aux,
-                          const int* __restrict__ state, const float* __restrict__ coef,
-                          const float* __restrict__ ampn, const float* __restrict__ hfamp,
-                          const int* __restrict__ hfmeta, const int* __restrict__ hdr,
-                          int* __restrict__ bits_out, int* __restrict__ words,
-                          int* __restrict__ freg_out, int* __restrict__ fwc_out, int B, int P,
-                          int n_words) {
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= B * kCand) return;
-  const int b = tid / kCand, cand = tid % kCand;
-  int covered = 0, prev_q = -1, bits = 0, tail_done = 0;
-  uint32_t reg = 0;
-  int fill = 0, wcount = 0;
-  int* my_words = nullptr;
-  if (kMat) {
-    const int h = hdr[b];
-    fill = h >> 8;
-    reg = static_cast<uint32_t>(fill == 2 ? (h & 0xFF) : (h & 0xF));
-    my_words = words + static_cast<size_t>(tid) * n_words;
-  }
-  for (int p = 0; p < P; ++p) {
-    const size_t pb = static_cast<size_t>(p) * B + b;
-    const size_t lb = static_cast<size_t>(p >> 1) * B + b;
-    const int ax = aux[pb];
-    const int segdelta = ax & 0xFFFF;
-    const int srow = state[pb * kCand + cand];
-    const int ncp = srow & 0xFFFF;
-    const int qq = (srow >> 16) & 0x1F;
-    const bool is_code = (srow >> 21) & 1;
-    const bool is_tail = (ncp - p) >= segdelta;
-    const bool gp = !is_code && !is_tail;
-    const int s = qq - 5;
-    const int ext_q = s >= 14;
-    const int z_r = min(max(ncp - p, 0), kSent);
+__global__ void __launch_bounds__(kMaxThreads)
+    p3_kernel(const int* __restrict__ thr, const int* __restrict__ aux,
+              const int* __restrict__ state, const float* __restrict__ coef,
+              const float* __restrict__ ampn, const float* __restrict__ hfamp,
+              const int* __restrict__ hfmeta, const int* __restrict__ hdr,
+              int* __restrict__ bits_out, int* __restrict__ words, int* __restrict__ freg_out,
+              int* __restrict__ fwc_out, int B, int P, int n_words, int L) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const P3Layout ly = p3_layout(L, kMat);
+  const int b0 = blockIdx.x * kTile, ns = min(kTile, B - b0);
+  const int nchunks = (P + L - 1) / L;
+  const int tid = threadIdx.x, nh = blockDim.x - kWalkers, h = tid - kWalkers;
+  auto arr_at = [&](int k, int off) { return reinterpret_cast<int*>(smem + (k & 1) * ly.stage + off); };
 
-    bool resc_ok, noise_ok;
-    int th = 0, qn1 = 0, qn2 = 0, nq_est = 0;
+  auto load = [&](int k) {
+    const Span s = chunk_span(k, L, P, false);
+    const int n = s.hi - s.lo;
+    copy_rows(arr_at(k, ly.aux), aux, s.lo, n, B, b0, ns, h, nh);
+    copy_cand_rows(arr_at(k, ly.st), state, s.lo, n, B, b0, ns, h, nh);
     if (kMat) {
-      const float scale = exp2i(qq);
-      const float c0 = coef[pb];
-      const float c1 = coef[static_cast<size_t>(min(p + 1, P - 1)) * B + b];
-      qn1 = min(cq_unsigned(__fmul_rn(fabsf(c0), scale)), 7);
-      if (c0 < 0.0f) qn1 = -qn1;
-      qn2 = min(cq_unsigned(__fmul_rn(fabsf(c1), scale)), 7);
-      if (c1 < 0.0f) qn2 = -qn2;
-      const float amp = ampn[lb];
-      nq_est = amp > 0.0f ? min(cq_unsigned(__fmul_rn(amp, scale)), 8) : 0;
-      resc_ok = abs(qn1) > 1 && (z_r < 2 || abs(qn2) > 1);
-      noise_ok = nq_est > 0;
+      // rows lo..hi: the last is the p + 1 look-ahead, clipped at P - 1
+      int* coef_s = arr_at(k, ly.coef);
+      for (int e = h; e < (n + 1) * ns; e += nh) {
+        const int i = e / ns, j = e - i * ns;
+        __pipeline_memcpy_async(
+            coef_s + i * kTile + j,
+            coef + static_cast<size_t>(min(s.lo + i, P - 1)) * B + b0 + j, 4);
+      }
+      const int line0 = s.lo >> 1, nl = (n + 1) >> 1;
+      copy_rows(arr_at(k, ly.ampn), reinterpret_cast<const int*>(ampn), line0, nl, B, b0, ns, h,
+                nh);
+      copy_rows(arr_at(k, ly.hfamp), reinterpret_cast<const int*>(hfamp), line0, nl, B, b0, ns,
+                h, nh);
+      copy_rows(arr_at(k, ly.hfmeta), hfmeta, line0, nl, B, b0, ns, h, nh);
     } else {
-      th = thr[pb];
-      resc_ok = qq >= (th & 63) && (z_r < 2 || qq >= ((th >> 6) & 63));
-      noise_ok = qq >= ((th >> 12) & 63);
+      copy_rows(arr_at(k, ly.thr), thr, s.lo, n, B, b0, ns, h, nh);
     }
-    const bool do_resc = gp && z_r <= 2 && resc_ok;
-    const bool do_noise = gp && !do_resc && z_r >= 16 && noise_ok;
-    const bool do_zs = gp && !do_resc && !do_noise && z_r < 33;
-    const int run_n = do_resc    ? z_r
-                      : do_noise ? min(z_r, 527)
-                      : do_zs    ? min(z_r, 16)
-                                 : min(z_r, 288);
-    const int run_cnt = do_resc ? z_r : do_noise ? 4 : do_zs ? 2 : 3;
+  };
 
-    if ((ax >> 16) & 1) {
-      prev_q = -1;
-      tail_done = 0;
-    }
-    const bool act = p >= covered && (is_code || gp);
-    const bool coded_ev = act && is_code;
-    const int lead = prev_q >= 0;
-    const bool need_q = act && qq != prev_q;
-    const int q_cnt = need_q ? 1 + ext_q + lead : 0;
-    const int cnt = act ? q_cnt + (is_code ? 1 : run_cnt) : 0;
-    const int new_covered = act ? (is_code ? p + 1 : p + run_n) : covered;
-    const int new_prev_q = need_q ? qq : prev_q;
+  auto prepass = [&](int k) {
+    const Span s = chunk_span(k, L, P, false);
+    const int n = s.hi - s.lo;
+    const int* aux_s = arr_at(k, ly.aux);
+    const int* st_s = arr_at(k, ly.st);
+    uint32_t* pp0 = reinterpret_cast<uint32_t*>(arr_at(k, ly.pp0));
+    uint32_t* pp1 = reinterpret_cast<uint32_t*>(arr_at(k, ly.pp1));
+    for (int e = h; e < n * kWalkers; e += nh) {
+      const int i = e / kWalkers, j = (e % kWalkers) / kCand;
+      if (j >= ns) continue;
+      const int p = s.lo + i, x = i * kTile + j, xl = (i >> 1) * kTile + j;
+      const int ax = aux_s[x];
+      const int segdelta = ax & 0xFFFF;
+      const int srow = st_s[e];
+      const int ncp = srow & 0xFFFF;
+      const int qq = (srow >> 16) & 0x1F;
+      const bool is_code = (srow >> 21) & 1;
+      const bool is_tail = (ncp - p) >= segdelta;
+      const bool gp = !is_code && !is_tail;
+      const int sq = qq - 5;
+      const int ext_q = sq >= 14;
+      const int z_r = min(max(ncp - p, 0), kSent);
 
-    // tail token: fires at the first in-segment position with nothing
-    // coded ahead
-    const bool tail_ev = !is_code && is_tail && tail_done == 0;
-    const int n_tail = segdelta;
-    const bool pq_valid = prev_q >= 0;
-    bool hfok, hf_amp_ok;
-    int nq_hf = 0, dec_t = 0;
-    if (kMat) {
-      const int meta = hfmeta[lb];
-      hfok = (meta >> 8) == 1;
-      dec_t = meta & 0xFF;
-      const float v = __fmul_rn(__fmul_rn(hfamp[lb], exp2i(prev_q)), 4.0f);
-      nq_hf = min(cq_unsigned(v), 16);
-      hf_amp_ok = nq_hf > 0;
-    } else {
-      hfok = (th >> 24) & 1;
-      hf_amp_ok = prev_q >= ((th >> 18) & 63);
-    }
-    const bool do_hf = tail_ev && pq_valid && n_tail >= 16 && hfok && hf_amp_ok;
-    const bool do_stop = tail_ev && n_tail > 4 && !do_hf;
-    const bool do_zt = tail_ev && n_tail > 0 && n_tail <= 4;
-    const int cnt_tail = do_hf ? 5 : do_stop ? (pq_valid ? 3 : 2) : do_zt ? 2 : 0;
-    if (tail_ev) tail_done = 1;
-    bits += cnt + cnt_tail;
-
-    if (kMat) {
-      uint32_t pos_packed;
-      if (tail_ev) {
-        if (do_hf) {
-          pos_packed = 0xFFu | (static_cast<uint32_t>((nq_hf - 1) & 0xF) << 8) |
-                       (static_cast<uint32_t>((dec_t >> 4) & 0xF) << 12) |
-                       (static_cast<uint32_t>(dec_t & 0xF) << 16);
-        } else if (do_stop) {
-          pos_packed = pq_valid ? (0xFu | (0xEu << 4) | (0xFu << 8)) : (0xEu | (0xFu << 4));
-        } else {
-          pos_packed = do_zt ? static_cast<uint32_t>(min(max(n_tail - 1, 0), 0xF)) << 4 : 0u;
-        }
+      bool resc_ok, noise_ok, hfok;
+      int th = 0, qn1 = 0, qn2 = 0, nq_est = 0;
+      if (kMat) {
+        const float* coef_s = reinterpret_cast<const float*>(arr_at(k, ly.coef));
+        const float scale = exp2i(qq);
+        const float c0 = coef_s[x];
+        const float c1 = coef_s[x + kTile];
+        qn1 = min(cq_unsigned(__fmul_rn(fabsf(c0), scale)), 7);
+        if (c0 < 0.0f) qn1 = -qn1;
+        qn2 = min(cq_unsigned(__fmul_rn(fabsf(c1), scale)), 7);
+        if (c1 < 0.0f) qn2 = -qn2;
+        const float amp = reinterpret_cast<const float*>(arr_at(k, ly.ampn))[xl];
+        nq_est = amp > 0.0f ? min(cq_unsigned(__fmul_rn(amp, scale)), 8) : 0;
+        resc_ok = abs(qn1) > 1 && (z_r < 2 || abs(qn2) > 1);
+        noise_ok = nq_est > 0;
+        hfok = (arr_at(k, ly.hfmeta)[xl] >> 8) == 1;
       } else {
-        const int qv0 = lead ? 0xF : (ext_q ? 0xE : s);
-        const int qv1 = lead ? (ext_q ? 0xE : s) : s - 14;
-        const int qv2 = s - 14;
+        th = arr_at(k, ly.thr)[x];
+        resc_ok = qq >= (th & 63) && (z_r < 2 || qq >= ((th >> 6) & 63));
+        noise_ok = qq >= ((th >> 12) & 63);
+        hfok = (th >> 24) & 1;
+      }
+      const bool do_resc = gp && z_r <= 2 && resc_ok;
+      const bool do_noise = gp && !do_resc && z_r >= 16 && noise_ok;
+      const bool do_zs = gp && !do_resc && !do_noise && z_r < 33;
+      const int run_n = do_resc    ? z_r
+                        : do_noise ? min(z_r, 527)
+                        : do_zs    ? min(z_r, 16)
+                                   : min(z_r, 288);
+      const int run_cnt = do_resc ? z_r : do_noise ? 4 : do_zs ? 2 : 3;
+      uint32_t w0 = static_cast<uint32_t>(qq) | (static_cast<uint32_t>(is_code) << 5) |
+                    (static_cast<uint32_t>(gp) << 6) | (static_cast<uint32_t>(ext_q) << 7) |
+                    (static_cast<uint32_t>(is_code ? 1 : run_cnt) << 8) |
+                    (static_cast<uint32_t>(is_code ? 1 : run_n) << 11) |
+                    (static_cast<uint32_t>((ax >> 16) & 1) << 21) |
+                    (static_cast<uint32_t>(!is_code && is_tail) << 22) |
+                    (static_cast<uint32_t>(segdelta >= 16 && hfok) << 23) |
+                    (static_cast<uint32_t>(segdelta > 4) << 24) |
+                    (static_cast<uint32_t>(segdelta > 0 && segdelta <= 4) << 25);
+      if (kMat) {
+        // t0 reads qn1 for a coded event too: when the position is coded
+        // and not active, its count is 0 and the nybbles are masked away
         const int v_noise = run_n - 16, v_long = run_n - 33;
-        const int t0 = (coded_ev || do_resc) ? (qn1 & 0xF) : do_noise ? 0x8 : do_zs ? 0x0 : 0x1;
+        const int t0 = (is_code || do_resc) ? (qn1 & 0xF) : do_noise ? 0x8 : do_zs ? 0x0 : 0x1;
         const int t1 = do_resc     ? (qn2 & 0xF)
                        : do_noise ? ((v_noise >> 5) & 0xF)
                        : do_zs    ? (run_n - 1)
                                   : ((v_long >> 4) & 0xF);
         const int t2 = do_noise ? ((v_noise >> 1) & 0xF) : (v_long & 0xF);
         const int t3 = ((v_noise & 1) | ((nq_est - 1) << 1)) & 0xF;
-        const uint32_t qpart = static_cast<uint32_t>((qv0 & 0xF) | ((qv1 & 0xF) << 4) |
-                                                     ((qv2 & 0xF) << 8));
-        const uint32_t tpart = static_cast<uint32_t>((t0 & 0xF) | ((t1 & 0xF) << 4) |
-                                                     ((t2 & 0xF) << 8) | ((t3 & 0xF) << 12));
-        const uint32_t qm = (1u << (4 * q_cnt)) - 1u;
-        const uint32_t hm = (1u << (4 * cnt)) - 1u;  // cnt <= 7
-        pos_packed = ((qpart & qm) | (tpart << (4 * q_cnt))) & hm;
-      }
-      // one u32 holds 8 nybbles; a position adds at most 7, so at most
-      // one word completes per position
-      const uint32_t full = reg | (pos_packed << (4 * fill));
-      const int newfill = fill + cnt + cnt_tail;
-      if (newfill >= 8) {
-        if (wcount < n_words) my_words[wcount] = static_cast<int>(full);
-        ++wcount;
-        reg = fill == 0 ? 0u : pos_packed >> (32 - 4 * fill);
+        const int dec_t = arr_at(k, ly.hfmeta)[xl] & 0xFF;
+        pp1[e] = static_cast<uint32_t>((t0 & 0xF) | ((t1 & 0xF) << 4) | ((t2 & 0xF) << 8) |
+                                       ((t3 & 0xF) << 12)) |
+                 (static_cast<uint32_t>(dec_t) << 16) |
+                 (static_cast<uint32_t>(min(max(segdelta - 1, 0), 0xF)) << 24);
       } else {
-        reg = full;
+        w0 |= static_cast<uint32_t>((th >> 18) & 63) << 26;
       }
-      fill = newfill & 7;
+      pp0[e] = w0;
     }
-    covered = new_covered;
-    prev_q = new_prev_q;
+    if (kMat) {  // the HF amplitudes, per (line, stream)
+      const int* src = arr_at(k, ly.hfamp);
+      int* dst = arr_at(k, ly.hf);
+      for (int e = h; e < ((n + 1) >> 1) * kTile; e += nh) dst[e] = src[e];
+    }
+  };
+
+  if (tid >= kWalkers) {
+    load(0);
+    __pipeline_commit();
   }
-  bits_out[tid] = bits;
-  if (kMat) {
-    if (wcount < n_words) my_words[wcount] = static_cast<int>(reg);
-    freg_out[tid] = static_cast<int>(reg);
-    fwc_out[tid] = wcount;
+
+  const int lane = tid & 31, j = lane / kCand;
+  const bool active = tid < kWalkers && j < ns;
+  int covered = 0, prev_q = -1, bits = 0, tail_done = 0;
+  uint32_t reg = 0;
+  int fill = 0, wcount = 0;
+  int* my_words = nullptr;
+  if (kMat && active) {
+    const int hd = hdr[b0 + j];
+    fill = hd >> 8;
+    reg = static_cast<uint32_t>(fill == 2 ? (hd & 0xFF) : (hd & 0xF));
+    my_words = words + static_cast<size_t>(b0 * kCand + lane) * n_words;
+  }
+
+  for (int k = 0; k <= nchunks; ++k) {
+    if (tid < kWalkers) {
+      if (k >= 1) {  // walk chunk k - 1
+        const Span s = chunk_span(k - 1, L, P, false);
+        const int n = s.hi - s.lo;
+        const uint32_t* pp0 = reinterpret_cast<const uint32_t*>(arr_at(k - 1, ly.pp0));
+        const uint32_t* pp1 = reinterpret_cast<const uint32_t*>(arr_at(k - 1, ly.pp1));
+        const float* hf_s = reinterpret_cast<const float*>(arr_at(k - 1, ly.hf));
+        uint32_t wn = pp0[lane];
+        for (int i = 0; i < n; ++i) {
+          const uint32_t w = wn;
+          if (i + 1 < n) wn = pp0[(i + 1) * kWalkers + lane];
+          const int p = s.lo + i;
+          if ((w >> 21) & 1) {
+            prev_q = -1;
+            tail_done = 0;
+          }
+          const int qq = w & 0x1F;
+          const bool is_code = (w >> 5) & 1;
+          const int ext_q = (w >> 7) & 1;
+          const bool act = p >= covered && (is_code || ((w >> 6) & 1));
+          const int lead = prev_q >= 0;
+          const bool need_q = act && qq != prev_q;
+          const int q_cnt = need_q ? 1 + ext_q + lead : 0;
+          const int cnt = act ? q_cnt + static_cast<int>((w >> 8) & 7) : 0;
+          const int new_covered = act ? p + static_cast<int>((w >> 11) & 0x3FF) : covered;
+          const int new_prev_q = need_q ? qq : prev_q;
+
+          // tail token: fires at the first in-segment position with
+          // nothing coded ahead
+          const bool tail_ev = ((w >> 22) & 1) && tail_done == 0;
+          const bool pq_valid = prev_q >= 0;
+          const bool hf_cand = tail_ev && pq_valid && ((w >> 23) & 1);
+          bool do_hf;
+          int nq_hf = 0;
+          if (kMat) {
+            if (hf_cand) {
+              const float v =
+                  __fmul_rn(__fmul_rn(hf_s[(i >> 1) * kTile + j], exp2i(prev_q)), 4.0f);
+              nq_hf = min(cq_unsigned(v), 16);
+            }
+            do_hf = hf_cand && nq_hf > 0;
+          } else {
+            do_hf = hf_cand && prev_q >= static_cast<int>(w >> 26);
+          }
+          const bool do_stop = tail_ev && ((w >> 24) & 1) && !do_hf;
+          const bool do_zt = tail_ev && ((w >> 25) & 1);
+          const int cnt_tail = do_hf ? 5 : do_stop ? (pq_valid ? 3 : 2) : do_zt ? 2 : 0;
+          if (tail_ev) tail_done = 1;
+          bits += cnt + cnt_tail;
+
+          if (kMat) {
+            const uint32_t w1 = pp1[i * kWalkers + lane];
+            uint32_t pos_packed;
+            if (tail_ev) {
+              const uint32_t dec_t = (w1 >> 16) & 0xFF;
+              if (do_hf) {
+                pos_packed = 0xFFu | (static_cast<uint32_t>((nq_hf - 1) & 0xF) << 8) |
+                             (((dec_t >> 4) & 0xF) << 12) | ((dec_t & 0xF) << 16);
+              } else if (do_stop) {
+                pos_packed = pq_valid ? (0xFu | (0xEu << 4) | (0xFu << 8)) : (0xEu | (0xFu << 4));
+              } else {
+                pos_packed = do_zt ? ((w1 >> 24) & 0xF) << 4 : 0u;
+              }
+            } else {
+              const int sq = qq - 5;
+              const int qv0 = lead ? 0xF : (ext_q ? 0xE : sq);
+              const int qv1 = lead ? (ext_q ? 0xE : sq) : sq - 14;
+              const int qv2 = sq - 14;
+              const uint32_t qpart = static_cast<uint32_t>((qv0 & 0xF) | ((qv1 & 0xF) << 4) |
+                                                           ((qv2 & 0xF) << 8));
+              const uint32_t tpart = w1 & 0xFFFFu;
+              const uint32_t qm = (1u << (4 * q_cnt)) - 1u;
+              const uint32_t hm = (1u << (4 * cnt)) - 1u;  // cnt <= 7
+              pos_packed = ((qpart & qm) | (tpart << (4 * q_cnt))) & hm;
+            }
+            // one u32 holds 8 nybbles; a position adds at most 7, so at
+            // most one word completes per position
+            const uint32_t full = reg | (pos_packed << (4 * fill));
+            const int newfill = fill + cnt + cnt_tail;
+            if (newfill >= 8) {
+              if (active && wcount < n_words) my_words[wcount] = static_cast<int>(full);
+              ++wcount;
+              reg = fill == 0 ? 0u : pos_packed >> (32 - 4 * fill);
+            } else {
+              reg = full;
+            }
+            fill = newfill & 7;
+          }
+          covered = new_covered;
+          prev_q = new_prev_q;
+        }
+      }
+    } else {
+      if (k + 1 < nchunks) load(k + 1);
+      __pipeline_commit();
+      __pipeline_wait_prior(1);  // this thread's copies of chunk k landed
+      helpers_sync(nh);          // and every helper's
+      if (k < nchunks) prepass(k);
+    }
+    __syncthreads();
+  }
+
+  if (active) {
+    const int w = b0 * kCand + lane;
+    bits_out[w] = bits;
+    if (kMat) {
+      if (wcount < n_words) my_words[wcount] = static_cast<int>(reg);
+      freg_out[w] = static_cast<int>(reg);
+      fwc_out[w] = wcount;
+    }
   }
 }
 
 inline int grid_for(int B) { return (B * kCand + kThreads - 1) / kThreads; }
 
+// Checks the geometry the wrapper passes (encode_kernels.walk_geometry)
+// against this file's layout, and lets the kernel take that much
+// dynamic shared memory. Returns a cudaError_t.
+template <typename Kernel>
+int prepare_walk(Kernel kernel, int L, int threads, int smem, int want_smem) {
+  if (L < 2 || L % 2 || threads < 2 * kWalkers || threads > kMaxThreads || threads % 32 ||
+      smem != want_smem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+}
+
+inline int walk_grid(int B) { return (B + kTile - 1) / kTile; }
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Each launches on the given
-// stream, allocates nothing, and returns cudaGetLastError() as an int.
+// stream, allocates nothing, and returns a cudaError_t as an int: the
+// geometry check's, the shared-memory attribute's, or cudaGetLastError()
+// after the launch.
 extern "C" {
 
 int ulcx_p1(const void* t, const void* c, const void* key, const void* coef, const void* aux,
@@ -319,33 +646,40 @@ int ulcx_p1(const void* t, const void* c, const void* key, const void* coef, con
 }
 
 int ulcx_p2(const void* t, const void* c, const void* key, const void* thr, const void* aux,
-            const void* s12, void* state, int B, int P, void* stream) {
-  p2_kernel<<<grid_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            const void* s12, void* state, int B, int P, int L, int threads, int smem,
+            void* stream) {
+  const int rc = prepare_walk(p2_kernel, L, threads, smem, p2_layout(L).total);
+  if (rc) return rc;
+  p2_kernel<<<walk_grid(B), threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(t), static_cast<const int*>(c), static_cast<const int*>(key),
       static_cast<const int*>(thr), static_cast<const int*>(aux), static_cast<const int*>(s12),
-      static_cast<int*>(state), B, P);
+      static_cast<int*>(state), B, P, L);
   return static_cast<int>(cudaGetLastError());
 }
 
 int ulcx_p3_size(const void* thr, const void* aux, const void* state, void* bits, int B, int P,
-                 void* stream) {
-  p3_kernel<false><<<grid_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                 int L, int threads, int smem, void* stream) {
+  const int rc = prepare_walk(p3_kernel<false>, L, threads, smem, p3_layout(L, false).total);
+  if (rc) return rc;
+  p3_kernel<false><<<walk_grid(B), threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(thr), static_cast<const int*>(aux), static_cast<const int*>(state),
       nullptr, nullptr, nullptr, nullptr, nullptr, static_cast<int*>(bits), nullptr, nullptr,
-      nullptr, B, P, 0);
+      nullptr, B, P, 0, L);
   return static_cast<int>(cudaGetLastError());
 }
 
 int ulcx_p3_materialize(const void* aux, const void* state, const void* coef, const void* ampn,
                         const void* hfamp, const void* hfmeta, const void* hdr, void* bits,
-                        void* words, void* freg, void* fwc, int B, int P, int n_words,
-                        void* stream) {
-  p3_kernel<true><<<grid_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                        void* words, void* freg, void* fwc, int B, int P, int n_words, int L,
+                        int threads, int smem, void* stream) {
+  const int rc = prepare_walk(p3_kernel<true>, L, threads, smem, p3_layout(L, true).total);
+  if (rc) return rc;
+  p3_kernel<true><<<walk_grid(B), threads, smem, static_cast<cudaStream_t>(stream)>>>(
       nullptr, static_cast<const int*>(aux), static_cast<const int*>(state),
       static_cast<const float*>(coef), static_cast<const float*>(ampn),
       static_cast<const float*>(hfamp), static_cast<const int*>(hfmeta),
       static_cast<const int*>(hdr), static_cast<int*>(bits), static_cast<int*>(words),
-      static_cast<int*>(freg), static_cast<int*>(fwc), B, P, n_words);
+      static_cast<int*>(freg), static_cast<int*>(fwc), B, P, n_words, L);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,6 +3,9 @@
 Port of ``ulcx.parallel.mesh.batch_encode`` and ``batch_decode`` without
 the mesh: streams are independent, so one device codes the whole batch.
 Splitting the batch over several GPUs is later work (ROADMAP A.11).
+
+Both run on the card unless the caller passes ``device="cpu"``; with no
+card, the default raises rather than falling back to the CPU.
 """
 
 from __future__ import annotations
@@ -14,14 +17,25 @@ from ulcx_torch.codec.encoder import encode_stream_batched
 from ulcx_torch.utils.config import CodecConfig
 
 
-def batch_encode(blocks, cfg: CodecConfig, mode: str, mesh=None, scan_major: bool = False, **kw):
+def _on(x, device) -> torch.Tensor:
+    """``x`` (tensor or array) as a tensor on ``device``; a CUDA device
+    with no card raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card unless given device='cpu'"
+        )
+    return torch.as_tensor(x).to(device)
+
+
+def batch_encode(blocks, cfg: CodecConfig, mode: str, mesh=None, scan_major: bool = False,
+                 device="cuda", **kw):
     """Encode a batch of streams: blocks [B, T, C, N] -> (EncodedBlock
-    with leading [B, T] ([T, B] with scan_major=True), stats). The
-    device is the one ``blocks`` lies on."""
+    with leading [B, T] ([T, B] with scan_major=True), stats), computed
+    on ``device``."""
     if mesh is not None:
         raise NotImplementedError("multi-device batch_encode is not ported: ROADMAP A.11")
-    blocks = torch.as_tensor(blocks)
-    out, _ = encode_stream_batched(blocks, cfg, mode, scan_major=scan_major, **kw)
+    out, _ = encode_stream_batched(_on(blocks, device), cfg, mode, scan_major=scan_major, **kw)
     stats = {
         "total_bits": torch.sum(out.size_bits),
         "avg_complexity": torch.mean(out.complexity),
@@ -29,10 +43,11 @@ def batch_encode(blocks, cfg: CodecConfig, mode: str, mesh=None, scan_major: boo
     return out, stats
 
 
-def batch_decode(streams, n_blocks: int, window_bytes: int, cfg: CodecConfig, mesh=None):
+def batch_decode(streams, n_blocks: int, window_bytes: int, cfg: CodecConfig, mesh=None,
+                 device="cuda"):
     """Decode a batch of padded byte streams [B, S] uint8 -> (pcm
-    [B, T, C, N], bits [B, T], corrupt [B, T]) with T = n_blocks, on the
-    device ``streams`` lies on."""
+    [B, T, C, N], bits [B, T], corrupt [B, T]) with T = n_blocks,
+    computed on ``device``."""
     if mesh is not None:
         raise NotImplementedError("multi-device batch_decode is not ported: ROADMAP A.11")
-    return decode_stream_batched(torch.as_tensor(streams), n_blocks, window_bytes, cfg)
+    return decode_stream_batched(_on(streams, device), n_blocks, window_bytes, cfg)

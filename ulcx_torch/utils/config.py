@@ -1,23 +1,116 @@
-"""Codec configuration: the reference's own, re-exported.
+"""Codec configuration.
 
-``ulcx.utils.config`` imports nothing of jax, so the port shares it
-rather than copying it. The port serves only part of it; see
-``check_supported``.
+The port's own copy of ``ulcx.utils.config``: the same dataclass, fields,
+defaults, checks and derived properties, so that one set of keyword
+arguments configures both packages alike. The port serves only part of
+it; see ``check_supported``.
+
+The reference's only configuration is three compile-time feature flags
+(reference include/ulcEncoder.h:9-33: ULC_USE_PSYCHOACOUSTICS,
+ULC_USE_NOISE_CODING, ULC_USE_WINDOW_SWITCHING) plus the CLI parameters
+(rate mode, block size, output PCM format); here they are one runtime
+dataclass.
 """
 
 from __future__ import annotations
 
-from ulcx.utils.config import (  # noqa: F401
-    COEF_EPS,
-    MAX_BANDS,
-    MAX_BLOCK_DECIMATION_FACTOR,
-    MAX_CHANS,
-    MAX_SUBBLOCKS,
-    MIN_BANDS,
-    MIN_CHANS,
-    N_BARK_BANDS,
-    CodecConfig,
-)
+import dataclasses
+from functools import cached_property
+
+MIN_CHANS = 1
+MAX_CHANS = 255
+MIN_BANDS = 256          # reference libulc/ulcEncoder.c:20 (transient detector limit)
+MAX_BANDS = 32768
+MAX_BLOCK_DECIMATION_FACTOR = 8   # reference include/ulcEncoder.h:30
+MAX_SUBBLOCKS = 4
+COEF_EPS = 2.0 ** -31    # reference include/ulcEncoder.h:36
+
+N_BARK_BANDS = 25
+
+
+@dataclasses.dataclass(frozen=True)
+class CodecConfig:
+    """Static codec parameters shared by encoder and decoder.
+
+    Mirrors the reference's ULC_EncoderState_t globals (RateHz, nChan,
+    BlockSize; reference include/ulcEncoder.h:47-52) plus the three
+    feature flags as runtime switches.
+    """
+
+    rate_hz: int = 44100
+    n_chan: int = 2
+    block_size: int = 2048
+    use_psychoacoustics: bool = True
+    use_noise_coding: bool = True
+    use_window_switching: bool = True
+    # Transform backend: "matmul" (cosine-matrix products, for subblocks
+    # up to matmul_max_n), "fact" (DCT-IV factorized into two small
+    # matmul stages), "fft", or "auto" (matmul up to matmul_max_n, fact
+    # above). The port serves "matmul" only (ROADMAP A.7).
+    transform_backend: str = "auto"
+    matmul_max_n: int = 2048
+    # CBR/ABR rate search: "ladder" (candidates per round, exact under
+    # monotone Size(n)) or "bisect" (the reference's sequential
+    # bisection; not ported, ROADMAP A.9).
+    rate_search: str = "ladder"
+    # Noise-run amplitude window: "segment" (min(seg_end - pos, 527)
+    # lines, candidate-independent) or "gap" (the reference's exact
+    # min(gap_len, 527); scan-only, not ported, ROADMAP A.9).
+    noise_run_window: str = "segment"
+    # Bitstream kernels: "auto" and "on" both mean the kernels in the
+    # port; "off" is the scan path (not ported, ROADMAP A.9).
+    use_pallas: str = "auto"
+    # Fold the block axis T into the batch (not ported, ROADMAP A.8).
+    flat_stream: bool = False
+    # Fold the bitstream stages over chunks of blocks: byte-identical by
+    # contract, accepted and ignored by the port.
+    fold_bitstream: int = 1
+
+    def __post_init__(self):
+        if not (MIN_CHANS <= self.n_chan <= MAX_CHANS):
+            raise ValueError(f"n_chan must be in [{MIN_CHANS},{MAX_CHANS}], got {self.n_chan}")
+        bs = self.block_size
+        if not (MIN_BANDS <= bs <= MAX_BANDS) or (bs & (bs - 1)) != 0:
+            raise ValueError(f"block_size must be a power of 2 in [{MIN_BANDS},{MAX_BANDS}], got {bs}")
+        if self.rate_hz < 1:
+            raise ValueError(f"rate_hz must be >= 1, got {self.rate_hz}")
+        if self.transform_backend not in ("auto", "matmul", "fact", "fft"):
+            raise ValueError(f"bad transform_backend {self.transform_backend!r}")
+        if self.rate_search not in ("ladder", "bisect"):
+            raise ValueError(f"bad rate_search {self.rate_search!r}")
+        if self.noise_run_window not in ("segment", "gap"):
+            raise ValueError(f"bad noise_run_window {self.noise_run_window!r}")
+        if self.use_pallas not in ("auto", "on", "off"):
+            raise ValueError(f"bad use_pallas {self.use_pallas!r}")
+        if self.noise_run_window == "gap" and self.use_pallas == "on":
+            raise ValueError(
+                "noise_run_window='gap' is scan-only (the C-exact run "
+                "window is candidate-dependent state the streaming "
+                "kernels cannot address); use use_pallas='auto'/'off' "
+                "with it, or the default 'segment' window for the fast "
+                "path (corpus impact <= 0.114% size, PARITY.md §2)"
+            )
+        if not (isinstance(self.fold_bitstream, int) and self.fold_bitstream >= 1):
+            raise ValueError(
+                f"fold_bitstream must be an int >= 1, got {self.fold_bitstream!r}"
+            )
+
+    @cached_property
+    def max_decimation(self) -> int:
+        return MAX_BLOCK_DECIMATION_FACTOR if self.use_window_switching else 1
+
+    @cached_property
+    def subblock_sizes(self) -> tuple[int, ...]:
+        """All possible subblock sizes (block_size >> {0,1,2,3})."""
+        if not self.use_window_switching:
+            return (self.block_size,)
+        return tuple(self.block_size >> s for s in range(4))
+
+    def transform_for(self, n: int) -> str:
+        """Backend name for a length-n DCT-IV/DST-IV."""
+        if self.transform_backend != "auto":
+            return self.transform_backend
+        return "matmul" if n <= self.matmul_max_n else "fact"
 
 
 def _check_transforms(cfg: CodecConfig) -> None:
