@@ -7,13 +7,16 @@ Phases, each of which raises on failure:
 
 1. device: require CUDA, turn TF32 off, print the card's name and power limit;
 2. build the four encode-walk and three decode kernels from
-   ``ulcx_torch/csrc`` (one nvcc call);
+   ``ulcx_torch/csrc`` (one nvcc call), print each kernel's registers
+   and spills as ptxas reports them, and check that every entry point
+   that takes a launch geometry refuses one whose shared-memory bytes
+   differ from its Python mirror's;
 3. kernels vs plain: one block step's walk planes at the flagship shape
    (stereo bs2048, P=4096, from ``bench.make_corpus``), at B=128 and at
    the main path's B=512, go through each kernel and its plain PyTorch
    version on the card; every output must be identical, and both are
    timed; then every kernel again at a ragged shape (B=13 streams, not a
-   multiple of the p2/p3 stream tile, 3 channels x bs256, P=768),
+   multiple of the walks' stream tile, 3 channels x bs256, P=768),
    identical too, p3 materialize also into a 6-word buffer;
 4. main path: ``batch_encode`` CBR-128 at B=512, T=8 on the card; every
    block within its budget, the launch counters exactly T x (3, 3, 2, 1),
@@ -22,8 +25,12 @@ Phases, each of which raises on failure:
    walks); window control and coded counts exact, total size within 1 %;
 6. decode kernels vs plain: phase 4's bytes packed into streams as
    bench.py packs them, windows of the first and of a later block at the
-   bench's window size, at B=128 and B=512; each decode kernel's outputs
-   identical to its plain version's (coefficients as bits), both timed;
+   bench's window size, at B=128, B=512 and a ragged B=13 (not a
+   multiple of the RNG kernels' stream tile); each decode kernel's
+   outputs identical to its plain version's (coefficients as bits), both
+   timed; then RNG-expand and RNG on synthetic record flags (B=13,
+   P=4096) whose first record is a steep tail that decays through the
+   flush to zero over a dozen of the kernels' chunks;
 7. decode main path: ``batch_decode`` of those streams at B=512, T=8 on
    the card; no corrupt block, every block's bits rounded up to bytes
    equal to its encoded size, the launch counters exactly T x (1, 1, 0),
@@ -46,6 +53,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -58,6 +66,7 @@ KERNEL_B = 128
 MAIN_B, MAIN_T = 512, 8
 CPU_B, CPU_T = 8, 2
 WARMUP_LAUNCHES, TIMED_LAUNCHES = 10, 50  # warm-up lets the clocks ramp after the plain run
+HOLD_CYCLES = 200_000_000  # ~0.1 s of device sleep ahead of a timed run of launches
 WARM_RUNS = 3
 DEC_CPU_B, DEC_CPU_T = 8, 2
 LATER_BLOCK = 5  # phase 6's second window
@@ -75,7 +84,8 @@ REPLACES = {
     "rng": "ulcx/bitstream/pallas_decode.py:346",
 }
 PER_BLOCK = {"p1": 3, "p2": 3, "p3_size": 2, "p3_materialize": 1}
-REDESIGNED = {"p2": "PR 3", "p3_size": "PR 3", "p3_materialize": "PR 3"}
+REDESIGNED = {"p1": "PR 4", "p2": "PR 3", "p3_size": "PR 3", "p3_materialize": "PR 3",
+              "rng_expand": "PR 4", "rng": "PR 4"}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 RAGGED_B, RAGGED_BS, RAGGED_CHAN = 13, 256, 3
 DEC_PER_BLOCK = {"fsm": 1, "rng_expand": 1, "rng": 0}
@@ -193,10 +203,15 @@ def ragged_corpus():
 
 def timed(fn, args, reps):
     """(last output, ms per call) over ``reps`` back-to-back calls,
-    timed with CUDA events."""
+    timed with CUDA events. With reps > 1 (a kernel's launches) the
+    device first sleeps while the host queues them, so a host slower
+    than the kernel (a shared machine's cores) adds no gaps between
+    launches to the time."""
     import torch
 
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if reps > 1:
+        torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         out = fn(*args)
@@ -306,11 +321,46 @@ def pack_streams(out):
     return torch.from_numpy(streams), torch.from_numpy(offs), win, torch.from_numpy(sizes)
 
 
+def decode_vs_plain(name, kernel, plain, args, label):
+    """One decode kernel against its plain version (floats compared as
+    bits), both timed: (max_abs_err, kernel ms, plain ms, bytes)."""
+    import torch
+
+    want, plain_ms = timed(plain, args, 1)
+    for _ in range(WARMUP_LAUNCHES):
+        kernel(*args)
+    got, ms = timed(kernel, args, TIMED_LAUNCHES)
+    err = 0.0
+    for w, g in zip(want, got):
+        if w.shape != g.shape or w.dtype != g.dtype:
+            raise AssertionError(f"{name}: {g.shape} {g.dtype} vs plain {w.shape} {w.dtype}")
+        if g.dtype == torch.float32:
+            err = max(err, float((g - w).abs().max()))
+            same = torch.equal(g.view(torch.int32), w.view(torch.int32))
+        else:
+            same = torch.equal(g, w)
+        if not same:
+            raise AssertionError(f"{name} ({label}): kernel differs from its plain version "
+                                 f"(max abs err {err})")
+    print(f"{name} {label}: identical to plain (bits); kernel {ms:.4f} ms, plain {plain_ms:.1f} ms",
+          flush=True)
+    return (err, ms, plain_ms, io_bytes(args, got)), got
+
+
+def stream_seeds(b, seed):
+    """[B] int32 RNG seeds holding u32 bits, every other one with bit 31 set."""
+    import numpy as np
+    import torch
+
+    s = np.random.default_rng(seed).integers(0, 2**32, b, dtype=np.uint64).astype(np.uint32)
+    s[1::2] |= np.uint32(1 << 31)
+    return torch.from_numpy(s.view(np.int32))
+
+
 def decode_kernels_vs_plain(cfg, streams, offs, win, device):
     """Phase 6: each decode kernel against its plain version on the
     windows of blocks 0 and LATER_BLOCK; returns {name: (max_abs_err,
-    kernel ms, plain ms)} for block 0."""
-    import numpy as np
+    kernel ms, plain ms, bytes)} for block 0."""
     import torch
 
     from ulcx_torch.bitstream import decode_kernels as dk
@@ -321,11 +371,7 @@ def decode_kernels_vs_plain(cfg, streams, offs, win, device):
     for blk in (0, LATER_BLOCK):
         windows = torch.gather(streams, 1, offs[:, blk : blk + 1] + torch.arange(win)).to(device)
         wc, _, tokens = fd._header_and_tokens(windows)
-        b = windows.shape[0]
-        rng = np.random.default_rng(blk)
-        seed = rng.integers(0, 2**32, b, dtype=np.uint64).astype(np.uint32)
-        seed[1::2] |= np.uint32(1 << 31)
-        seed = torch.from_numpy(seed.view(np.int32)).to(device)
+        seed = stream_seeds(windows.shape[0], blk).to(device)
         rec, code, _, corrupt = dk.fsm(wc, tokens, p_tot, cfg.block_size)
         if bool(corrupt.any()):
             raise AssertionError(f"block {blk}: {int(corrupt.sum())} windows decode as corrupt")
@@ -336,27 +382,52 @@ def decode_kernels_vs_plain(cfg, streams, offs, win, device):
             "rng": (dk.rng, dk.rng_plain, (dk.rng_flags(flags), seed)),
         }
         for name, (kernel, plain, args) in calls.items():
-            want, plain_ms = timed(plain, args, 1)
-            for _ in range(WARMUP_LAUNCHES):
-                kernel(*args)
-            got, ms = timed(kernel, args, TIMED_LAUNCHES)
-            err = 0.0
-            for w, g in zip(want, got):
-                if w.shape != g.shape or w.dtype != g.dtype:
-                    raise AssertionError(f"{name}: {g.shape} {g.dtype} vs plain {w.shape} {w.dtype}")
-                if g.dtype == torch.float32:
-                    err = max(err, float((g - w).abs().max()))
-                    same = torch.equal(g.view(torch.int32), w.view(torch.int32))
-                else:
-                    same = torch.equal(g, w)
-                if not same:
-                    raise AssertionError(f"{name} (block {blk}): kernel differs from its plain "
-                                         f"version (max abs err {err})")
+            res, _ = decode_vs_plain(name, kernel, plain, args, f"block {blk}")
             if blk == 0:
-                results[name] = (err, ms, plain_ms, io_bytes(args, got))
-            print(f"{name} block {blk}: identical to plain (bits); kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.1f} ms", flush=True)
+                results[name] = res
     return results
+
+
+def synthetic_flags(rng, n_pos, b):
+    """Records tiling [P, B] at random: single coefficients, zero runs,
+    noise runs and tail runs, with random codes; stream 0 starts with a
+    long steep tail whose magnitude decays below the normal range (to 0
+    after ~660 positions). Returns expansion flags [P, B] i32."""
+    import numpy as np
+
+    flags = np.zeros((n_pos, b), np.int32)
+    for i in range(b):
+        p = 0
+        while p < n_pos:
+            kind = rng.integers(0, 4)
+            a, dn, qi = int(rng.integers(0, 32)), int(rng.integers(0, 256)), int(rng.integers(0, 32))
+            length = 1 if kind == 0 else int(rng.integers(1, 300))
+            if i == 0 and p == 0:
+                kind, a, dn, qi, length = 3, 16, 255, 0, 1500  # decays to 0 after ~660
+            draw = kind in (2, 3)
+            code = a | (dn << 5) | (qi << 13)
+            flags[p, i] = 1 | (draw << 1) | ((kind == 0) << 2) | ((kind == 3) << 3) | (code << 4)
+            p += length
+    return flags
+
+
+def rng_vs_plain_synthetic(n_pos, b, device):
+    """Phase 6: RNG-expand and RNG against their plain versions on
+    ``synthetic_flags``; the steep tail must decay through the flush."""
+    import numpy as np
+    import torch
+
+    from ulcx_torch.bitstream import decode_kernels as dk
+
+    flags = torch.from_numpy(synthetic_flags(np.random.default_rng(6), n_pos, b)).to(device)
+    seed = stream_seeds(b, 6).to(device)
+    label = f"synthetic tail flags B={b} P={n_pos}"
+    _, (coef, _) = decode_vs_plain("rng_expand", dk.rng_expand, dk.rng_expand_plain,
+                                   (flags, seed), label)
+    decode_vs_plain("rng", dk.rng, dk.rng_plain, (dk.rng_flags(flags), seed), label)
+    tail = coef[:1500, 0].cpu()
+    if not (bool((tail[:600] != 0).all()) and bool((tail[700:] == 0).all())):
+        raise AssertionError("the synthetic tail does not decay through the flush")
 
 
 def decode_snr(x, pcm):
@@ -431,6 +502,27 @@ def decode_cuda_vs_cpu(cfg, streams, win, devices=("cuda", "cpu")):
           f"{rms:.3g} RMS apart", flush=True)
 
 
+def refuse_other_geometry(lib):
+    """Every entry point that takes a launch geometry returns
+    cudaErrorInvalidValue (1), launching nothing, when its shared-memory
+    bytes differ from the kernel's layout by one 16-byte row."""
+    from ulcx_torch._build import _SIGNATURES
+    from ulcx_torch.bitstream import decode_kernels as dk
+    from ulcx_torch.bitstream import encode_kernels as ek
+
+    b, n_pos = MAIN_B, 2 * BS
+    cases = {f"ulcx_{k}": (b, n_pos, *ek._geometry_ints(k, n_pos, b))
+             for k in ("p1", "p2", "p3_size")}
+    cases["ulcx_p3_materialize"] = (b, n_pos, 64, *ek._geometry_ints("p3_materialize", n_pos, b))
+    cases["ulcx_rng_expand"] = (b, n_pos, *dk._rng_geometry_ints(n_pos, b, True))
+    cases["ulcx_rng"] = (b, n_pos, *dk._rng_geometry_ints(n_pos, b, False))
+    for name, ints in cases.items():
+        rc = getattr(lib, name)(*[None] * _SIGNATURES[name][0], *ints[:-1], ints[-1] + 16, None)
+        if rc != 1:
+            raise AssertionError(f"{name} took a geometry 16 bytes off its layout (rc {rc})")
+    print(f"geometry: {', '.join(cases)} refuse shared memory off their layout", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -460,9 +552,15 @@ def main() -> int:
     print(f"built {path.name} in {secs:.1f} s", flush=True)
     report = path.with_suffix(".ptxas.txt")
     if report.exists():  # absent when the library was already built
+        spills = []
         for line in report.read_text().splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print("ptxas:", line.strip(), flush=True)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and m.groups() != ("0", "0"):
+                spills.append(line.strip())
+        print(f"ptxas spills: {spills or 'none'}", flush=True)
+    refuse_other_geometry(_build.library())
 
     cfg = CodecConfig(rate_hz=44100, n_chan=2, block_size=BS)
     if int(cbr_bit_budget(cfg, RATE_KBPS)) != CBR_BUDGET:
@@ -492,6 +590,9 @@ def main() -> int:
     for b in (KERNEL_B, MAIN_B):
         print(f"B={b}, P={2 * BS}, window {win} bytes ({2 * win - 2} tokens):", flush=True)
         dres[b] = decode_kernels_vs_plain(cfg, streams[:b], offs[:b], win, "cuda")
+    print(f"B={RAGGED_B} (ragged), P={2 * BS}:", flush=True)
+    decode_kernels_vs_plain(cfg, streams[:RAGGED_B], offs[:RAGGED_B], win, "cuda")
+    rng_vs_plain_synthetic(2 * BS, RAGGED_B, "cuda")
 
     phase("7 decode main path")
     dcounts, dwarm, audio_s = decode_main_path(cfg, x, streams, win, sizes, "cuda")

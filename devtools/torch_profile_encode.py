@@ -74,16 +74,12 @@ def layers(cfg, blocks):
     return {n: sorted(r[i] for r in rows)[len(rows) // 2] for i, n in enumerate(names)}
 
 
-def device_view(cfg, blocks):
-    import torch
+def device_groups(prof, kernels):
+    """(device busy ms, {group: {"ms", "count"}}) of a profile: the
+    kernels named in ``kernels``, float32 GEMMs, everything else."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from ulcx_torch.parallel.mesh import batch_encode
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = _sync_ms(lambda: batch_encode(blocks, cfg, "cbr", rate_kbps=RATE_KBPS))
-    groups = {name: [0.0, 0] for name in (*WALKS, "gemm", "other")}
+    groups = {name: [0.0, 0] for name in (*kernels, "gemm", "other")}
     busy = 0.0
     for e in prof.key_averages():
         # device-side events only: a CPU op's self device time repeats
@@ -96,12 +92,23 @@ def device_view(cfg, blocks):
         if us <= 0:
             continue
         busy += us
-        key = next((w for w in WALKS if w in e.key), None)
+        key = next((w for w in kernels if w in e.key), None)
         if key is None:
             key = "gemm" if "gemm" in e.key.lower() else "other"
         groups[key][0] += us / 1e3
         groups[key][1] += e.count
-    return wall, busy / 1e3, {k: {"ms": v[0], "count": v[1]} for k, v in groups.items()}
+    return busy / 1e3, {k: {"ms": v[0], "count": v[1]} for k, v in groups.items()}
+
+
+def device_view(cfg, blocks):
+    from torch.profiler import ProfilerActivity, profile
+
+    from ulcx_torch.parallel.mesh import batch_encode
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = _sync_ms(lambda: batch_encode(blocks, cfg, "cbr", rate_kbps=RATE_KBPS))
+    busy, groups = device_groups(prof, WALKS)
+    return wall, busy, groups
 
 
 def warm_steps(cfg, blocks, runs=5):

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from bench import make_corpus
-from chip_smoke import pack_streams
+from chip_smoke import pack_streams, refuse_other_geometry, stream_seeds, synthetic_flags
+from ulcx_torch import _build
 from ulcx_torch.analysis.batched import analyze_block_batched
 from ulcx_torch.bitstream import decode_kernels as dk
 from ulcx_torch.bitstream import encode_kernels as ek
@@ -152,6 +153,30 @@ def test_decode_kernels_match_plain(dev):
     assert torch.equal(sign, sign_p) and torch.equal(s2, s2_p) and torch.equal(s1, s2)
     torch.cuda.synchronize()
     assert dk.launch_counts() == {"fsm": 1, "rng_expand": 1, "rng": 1}
+
+
+# B = 13 is not a multiple of the RNG kernels' stream tile; at P = 2048
+# and 4096 stream 0's steep tail decays through the flush over a dozen
+# chunks, and records cross chunk boundaries everywhere
+@pytest.mark.parametrize("b,n_pos", [(13, 768), (13, 2048), (40, 4096)])
+def test_rng_kernels_match_plain_on_synthetic_flags(dev, b, n_pos):
+    flags = torch.from_numpy(synthetic_flags(np.random.default_rng(b + n_pos), n_pos, b)).to(dev)
+    seed = stream_seeds(b, 7).to(dev)
+    dk.reset_launch_counts()
+    (coef, s1), (coef_p, s1_p) = dk.rng_expand(flags, seed), dk.rng_expand_plain(flags, seed)
+    assert torch.equal(coef.view(torch.int32), coef_p.view(torch.int32)) and torch.equal(s1, s1_p)
+    rflags = dk.rng_flags(flags)
+    (sign, s2), (sign_p, s2_p) = dk.rng(rflags, seed), dk.rng_plain(rflags, seed)
+    assert torch.equal(sign, sign_p) and torch.equal(s2, s2_p) and torch.equal(s1, s2)
+    tail = coef[:1500, 0].cpu()
+    assert (tail[:600] != 0).all() and (tail[700:] == 0).all()
+    assert (coef < 0).any() and (coef > 0).any()
+    torch.cuda.synchronize()
+    assert dk.launch_counts() == {"fsm": 0, "rng_expand": 1, "rng": 1}
+
+
+def test_entry_points_refuse_other_geometry(dev):
+    refuse_other_geometry(_build.library())
 
 
 def test_decode_path_on_card_matches_cpu(dev):

@@ -8,7 +8,8 @@ leaves the normal range, as XLA does). Inputs: windows of ulcx-encoded
 bs256 stereo streams (P = 512), the garbage and mutated windows of
 tests/test_fuzz_decoder.py, a truncated window, a bs1024 window longer
 than the TPU's 1024-token chunk, and synthetic record flags at P = 2048
-with long tail runs and seeds that have bit 31 set.
+with long tail runs (``chip_smoke.synthetic_flags``, which the card
+tests share) and seeds that have bit 31 set.
 
 The module also builds the windows that tests/test_torch_decode.py uses.
 """
@@ -20,11 +21,13 @@ import pytest
 import torch
 
 import test_fuzz_decoder
+from chip_smoke import synthetic_flags
 from ulcx.bitstream import fast_decode as jfd
 from ulcx.bitstream import pallas_decode as pd
 from ulcx.codec.encoder import encode_stream_batched
 from ulcx.utils.config import CodecConfig
 from ulcx_torch.bitstream import decode_kernels as dk
+from ulcx_torch.bitstream import encode_kernels as ek
 from ulcx_torch.bitstream.fast_decode import _header_and_tokens
 
 N, C = 256, 2
@@ -175,26 +178,6 @@ def _seeds(rng, b):
     return s
 
 
-def synthetic_flags(rng, n_pos, b):
-    """Records tiling [P, B] at random: single coefficients, zero runs,
-    noise runs and tail runs (a long steep tail decays below the normal
-    range), with random codes. Returns expansion flags [P, B] i32."""
-    flags = np.zeros((n_pos, b), np.int32)
-    for i in range(b):
-        p = 0
-        while p < n_pos:
-            kind = rng.integers(0, 4)
-            a, dn, qi = int(rng.integers(0, 32)), int(rng.integers(0, 256)), int(rng.integers(0, 32))
-            length = 1 if kind == 0 else int(rng.integers(1, 300))
-            if i == 0 and p == 0:
-                kind, a, dn, qi, length = 3, 16, 255, 0, 1500  # decays to 0 after ~660
-            draw = kind in (2, 3)
-            code = a | (dn << 5) | (qi << 13)
-            flags[p, i] = 1 | (draw << 1) | ((kind == 0) << 2) | ((kind == 3) << 3) | (code << 4)
-            p += length
-    return flags
-
-
 def _expand_both(flags, seeds):
     b = flags.shape[1]
     fl_l, _ = _lanes(flags.T.copy())
@@ -251,3 +234,45 @@ def test_rng_matches_ulcx(enc):
     nz = draw & (coef.numpy() != 0)
     assert nz.any()
     np.testing.assert_array_equal(np.sign(coef.numpy()[nz]), g_sign.numpy()[nz])
+
+
+def _served_positions():
+    """Every P = n_chan * block_size the decoder serves."""
+    return sorted({c * (256 << s) for s in range(8) for c in range(1, 256)
+                   if c * (256 << s) <= dk.MAX_P})
+
+
+@pytest.mark.parametrize("b", [1, 13, 128, 512, 2048])
+def test_rng_geometry_covers_once(b):
+    """The RNG kernels' launch geometry, at the default and at every
+    stream count the sweep tries: shared memory within Hopper's
+    per-block limit, the stream tiles cover every stream once, and the
+    position chunks cover every P the decoder serves once, in order."""
+    for streams in sorted({dk.RNG_STREAMS, 4, 8, 16, 32}):
+        seen = np.zeros(b, np.int64)
+        for b0, ns in dk.rng_tiles(b, streams):
+            assert 1 <= ns <= streams and b0 % streams == 0
+            seen[b0:b0 + ns] += 1
+        assert (seen == 1).all()
+        for n_pos in _served_positions():
+            for expand in (True, False):
+                g = dk.rng_geometry(n_pos, b, expand, streams)
+                assert g["smem"] <= ek.SMEM_LIMIT, (streams, expand, g["smem"])
+                assert g["grid"] == len(dk.rng_tiles(b, streams)) and g["threads"] % 32 == 0
+            pos = np.zeros(n_pos, np.int64)
+            chunks = ek.walk_chunks(n_pos, g["chunk"], False)
+            for lo, hi in chunks:
+                assert 0 < hi - lo <= g["chunk"]
+                pos[lo:hi] += 1
+            assert (pos == 1).all() and chunks == sorted(chunks)
+
+
+def test_rng_smem_matches_layout():
+    """The byte counts the RNG entry points check, by hand at 128
+    positions x 16 streams x 4 bytes per array, two stages: flags,
+    pre-pass word and output, plus level and decay when expanding."""
+    assert dk.rng_smem_bytes(True, 128, 16) == 2 * 5 * 128 * 16 * 4
+    assert dk.rng_smem_bytes(False, 128, 16) == 2 * 3 * 128 * 16 * 4
+    assert dk.rng_smem_bytes(False, 3, 13) == 2 * 3 * 160  # 39 words round up to 160 bytes
+    with pytest.raises(ValueError):
+        dk.rng_geometry(4096, 512, streams=33)

@@ -214,7 +214,7 @@ def _served_positions():
 
 @pytest.mark.parametrize("b", [1, 13, 128, 512, 2048])
 def test_walk_geometry_covers_once(b):
-    """The p2/p3 kernels' launch geometry: shared memory within Hopper's
+    """The walk kernels' launch geometry: shared memory within Hopper's
     per-block limit, and the stream tiles, position chunks and
     half-height line tiles each cover their range exactly once (so the
     tiles cover every (stream, position) once)."""
@@ -224,7 +224,7 @@ def test_walk_geometry_covers_once(b):
         streams[b0:b0 + ns] += 1
     assert (streams == 1).all()
     for n_pos in _served_positions():
-        for kind in ("p2", "p3_size", "p3_materialize"):
+        for kind in ("p1", "p2", "p3_size", "p3_materialize"):
             g = ek.walk_geometry(kind, n_pos, b)
             assert g["smem"] <= ek.SMEM_LIMIT, (kind, g["smem"])
             assert g["grid"] == len(ek.stream_tiles(b)) and g["threads"] % 32 == 0
@@ -247,10 +247,12 @@ def test_walk_geometry_covers_once(b):
 def test_walk_smem_matches_layout():
     """The byte counts the entry points check, by hand at CHUNK = 128:
     per position 4 streams x 4 bytes per [P, B] plane and 32 walkers x 4
-    bytes per [P, B, 8] plane or pre-pass word, two stages."""
+    bytes per [P, B, 8] plane, pre-pass or walker word, two stages; p1
+    and p2 then hold t and c of the 32 walkers."""
+    assert ek.walk_smem_bytes("p1", 128) == 2 * 128 * (4 * 16 + 2 * 128) + 256
     assert ek.walk_smem_bytes("p2", 128) == 2 * 128 * (3 * 16 + 3 * 128) + 256
     assert ek.walk_smem_bytes("p3_size", 128) == 2 * 128 * (2 * 16 + 2 * 128)
     assert ek.walk_smem_bytes("p3_materialize", 128) == 2 * (
         128 * (16 + 128 + 2 * 128) + 129 * 16 + 4 * 64 * 16)
     with pytest.raises(ValueError):
-        ek.walk_smem_bytes("p1", 128)
+        ek.walk_smem_bytes("p4", 128)

@@ -2,10 +2,11 @@
 
 ``csrc/encode_walks.cu`` and ``csrc/decode_walks.cu`` have a plain C
 interface, so one ``nvcc`` call compiles both into one shared library,
-loaded with ctypes: no PyTorch headers, a build of seconds. The library
-goes to ``build/ulcx_torch/`` beside the package, named by a hash of the
-sources and flags, so a changed source is rebuilt at its first use and
-an unchanged one is loaded as it is. Nothing is built when the module is
+loaded with ctypes: no PyTorch headers, a build of seconds. Both include
+``csrc/walk_ring.cuh``. The library goes to ``build/ulcx_torch/`` beside
+the package, named by a hash of every file under ``csrc/`` and the
+flags, so a changed source or header is rebuilt at its first use and an
+unchanged one is loaded as it is. Nothing is built when the module is
 imported.
 
 ``on_cpu``, ``check`` and ``launch`` are the wrappers' common steps: a
@@ -37,13 +38,13 @@ NVCC_FLAGS = (
 # entry point -> (pointer arguments, int arguments); each also takes the
 # stream last and returns cudaGetLastError() as an int
 _SIGNATURES = {
-    "ulcx_p1": (6, 2),
+    "ulcx_p1": (6, 5),
     "ulcx_p2": (7, 5),
     "ulcx_p3_size": (4, 5),
     "ulcx_p3_materialize": (11, 6),
     "ulcx_fsm": (7, 4),
-    "ulcx_rng_expand": (4, 2),
-    "ulcx_rng": (4, 2),
+    "ulcx_rng_expand": (4, 6),
+    "ulcx_rng": (4, 6),
 }
 
 
@@ -62,7 +63,7 @@ def build() -> tuple[Path, float]:
     """Compile the kernels if these sources have no library yet. Returns
     (library path, seconds spent compiling; 0 when already built)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in sorted(_CSRC.glob("*.cu*")):  # the sources and the headers they include
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     out = BUILD_DIR / f"libulcx_walks_{h.hexdigest()[:16]}.so"
     if out.exists():
@@ -71,7 +72,7 @@ def build() -> tuple[Path, float]:
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
+        [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp), *map(str, SOURCES)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:

@@ -34,7 +34,7 @@ import torch
 from ulcx_torch._build import check as _check
 from ulcx_torch._build import launch as _launch
 from ulcx_torch._build import on_cpu as _on_cpu
-from ulcx_torch.bitstream.encode_kernels import _wrap_i32
+from ulcx_torch.bitstream.encode_kernels import STAGES, _arr, _wrap_i32
 from ulcx_torch.ops.patterns import pattern_subblock_offsets, pattern_subblock_sizes
 from ulcx_torch.ops.quant import expand_quantizer
 
@@ -63,6 +63,13 @@ REC_NOISE = 3
 REC_TAIL = 4
 
 MAX_P = 32768  # rec holds a record start in 15 bits
+# Launch geometry of the RNG kernels (csrc/decode_walks.cu): a CTA walks
+# RNG_STREAMS streams, one lane of warp 0 each, while RNG_HELPER_WARPS
+# warps fill a ring of STAGES shared-memory stages of RNG_CHUNK
+# positions each, run the carry-free pre-pass and store the output.
+RNG_STREAMS = 8
+RNG_CHUNK = 128
+RNG_HELPER_WARPS = 3
 SEED = 1234567  # the reference's global noise seed (ulcDecoder.c:75-81)
 _I32 = torch.int32
 _M32 = 0xFFFFFFFF
@@ -113,6 +120,45 @@ def rng_flags(flags: torch.Tensor) -> torch.Tensor:
     start = (flags & 1) == 1
     draw = _ffill((flags >> 1) & 1, start)
     return (draw | ((flags & 1) << 1)).to(_I32)
+
+
+# --- launch geometry --------------------------------------------------------
+
+
+def rng_smem_bytes(expand: bool, chunk: int, streams: int) -> int:
+    """Dynamic shared memory of one RNG CTA: STAGES stages of
+    ``rng_layout`` in csrc/decode_walks.cu, which the entry points check
+    against this number. A stage holds, per (position, stream), the
+    flags, the pre-pass word and the output, and with ``expand`` the
+    level and the decay."""
+    return STAGES * (5 if expand else 3) * _arr(chunk * streams)
+
+
+def rng_geometry(n_pos: int, b: int, expand: bool = True, streams: int = RNG_STREAMS,
+                 helper_warps: int = RNG_HELPER_WARPS) -> dict:
+    """Launch geometry of the RNG kernels at P = n_pos, B = b: streams
+    per CTA, chunk length, ring stages, threads and shared-memory bytes
+    per CTA, and the grid (CTAs ``rng_tiles``, each walking the chunks
+    ``encode_kernels.walk_chunks(n_pos, RNG_CHUNK, False)``)."""
+    if n_pos < 1 or b < 1:
+        raise ValueError(f"empty walk: P={n_pos}, B={b}")
+    if not 1 <= streams <= 32:
+        raise ValueError(f"{streams} streams: a CTA walks 1 to 32, one lane of warp 0 each")
+    return {
+        "streams": streams, "chunk": RNG_CHUNK, "stages": STAGES,
+        "threads": 32 * (1 + helper_warps), "smem": rng_smem_bytes(expand, RNG_CHUNK, streams),
+        "grid": -(-b // streams),
+    }
+
+
+def rng_tiles(b: int, streams: int = RNG_STREAMS) -> list:
+    """[(b0, ns)] streams of each CTA: b0 = blockIdx * streams."""
+    return [(b0, min(streams, b - b0)) for b0 in range(0, b, streams)]
+
+
+def _rng_geometry_ints(n_pos: int, b: int, expand: bool) -> tuple:
+    g = rng_geometry(n_pos, b, expand)
+    return g["streams"], g["chunk"], g["threads"], g["smem"]
 
 
 # --- plain versions ---------------------------------------------------------
@@ -317,7 +363,8 @@ def rng_expand(flags, seed):
         return rng_expand_plain(flags, seed)
     n_pos, b, seed_out = _rng_args(flags, seed)
     coef = torch.empty((n_pos, b), dtype=torch.float32, device=flags.device)
-    _launch("ulcx_rng_expand", (flags, seed, coef, seed_out), (b, n_pos), flags.device)
+    _launch("ulcx_rng_expand", (flags, seed, coef, seed_out),
+            (b, n_pos, *_rng_geometry_ints(n_pos, b, True)), flags.device)
     rng_expand.launches += 1
     return coef, seed_out
 
@@ -329,7 +376,8 @@ def rng(flags, seed):
         return rng_plain(flags, seed)
     n_pos, b, seed_out = _rng_args(flags, seed)
     sign = torch.empty((n_pos, b), dtype=torch.float32, device=flags.device)
-    _launch("ulcx_rng", (flags, seed, sign, seed_out), (b, n_pos), flags.device)
+    _launch("ulcx_rng", (flags, seed, sign, seed_out),
+            (b, n_pos, *_rng_geometry_ints(n_pos, b, False)), flags.device)
     rng.launches += 1
     return sign, seed_out
 

@@ -39,7 +39,7 @@ from ulcx_torch.ops.quant import sqrt_rn
 N_CAND = 8
 SENT = 1 << 20  # "no position" sentinel (> any p)
 
-# Launch geometry of the p2/p3 kernels (csrc/encode_walks.cu): a CTA
+# Launch geometry of the walk kernels (csrc/encode_walks.cu): a CTA
 # walks STREAM_TILE streams x 8 candidates in warp 0 while HELPER_WARPS
 # warps fill a ring of STAGES shared-memory stages of CHUNK positions
 # each and run the carry-free pre-pass over them.
@@ -89,10 +89,13 @@ def _arr(n: int) -> int:
 
 
 def walk_smem_bytes(kind: str, chunk: int) -> int:
-    """Dynamic shared memory of one p2/p3 CTA: STAGES stages of the
-    layouts ``p2_layout``/``p3_layout`` in csrc/encode_walks.cu, which
-    the entry points check against this number."""
+    """Dynamic shared memory of one walk CTA: STAGES stages of the
+    layouts ``p1_layout``/``p2_layout``/``p3_layout`` in
+    csrc/encode_walks.cu, which the entry points check against this
+    number."""
     rows, cands, half = _arr(chunk * STREAM_TILE), _arr(chunk * STREAM_TILE * N_CAND), chunk // 2
+    if kind == "p1":  # key, coef, aux, segment starts | pre-pass words | walker words; then t, c
+        return STAGES * (4 * rows + 2 * cands) + _arr(2 * STREAM_TILE * N_CAND)
     if kind == "p2":  # key, thr, aux, s12 | pre-pass words | state rows; then t, c
         return STAGES * (3 * rows + 3 * cands) + _arr(2 * STREAM_TILE * N_CAND)
     if kind == "p3_size":  # aux, thr, state | pre-pass words
@@ -108,7 +111,7 @@ def walk_smem_bytes(kind: str, chunk: int) -> int:
 
 def walk_geometry(kind: str, n_pos: int, b: int, chunk: int = CHUNK,
                   helper_warps: int = HELPER_WARPS) -> dict:
-    """Launch geometry of the p2/p3 kernels at P = n_pos, B = b: the
+    """Launch geometry of the walk kernels at P = n_pos, B = b: the
     stream tile, chunk length, ring stages, threads and shared-memory
     bytes per CTA, and the grid (CTAs ``stream_tiles``, each walking the
     chunks ``walk_chunks``)."""
@@ -123,7 +126,7 @@ def walk_geometry(kind: str, n_pos: int, b: int, chunk: int = CHUNK,
 
 def walk_chunks(n_pos: int, chunk: int, reverse: bool) -> list:
     """[(lo, hi)] position ranges of the chunks in walk order; p2 walks
-    from high p to low (``chunk_span`` in the .cu)."""
+    from high p to low (``chunk_span`` in csrc/walk_ring.cuh)."""
     n = -(-n_pos // chunk)
     if reverse:
         return [(max(n_pos - (k + 1) * chunk, 0), n_pos - k * chunk) for k in range(n)]
@@ -379,7 +382,8 @@ def p1(t, c, key, coef, aux):
                              ("aux", aux, _I32, (n_pos, b))):
         _check(name, x, dt, shp)
     s12 = torch.empty((n_pos, b, N_CAND), dtype=_I32, device=key.device)
-    _launch("ulcx_p1", (t, c, key, coef, aux, s12), (b, n_pos), key.device)
+    _launch("ulcx_p1", (t, c, key, coef, aux, s12), (b, n_pos, *_geometry_ints("p1", n_pos, b)),
+            key.device)
     p1.launches += 1
     return s12
 

@@ -17,43 +17,45 @@
 //                                   128 contiguous bytes per position
 //   words                [B, 8, n_words]
 //
-// p1_kernel: one thread per (stream, candidate) walks all P positions
-// and reads each step's planes straight from device memory, so a step
-// costs about one memory latency (1.2 ms at B = 512, P = 4096, against a
-// bound of 27.5 us: 92.3 MB at 3.35 TB/s). Not redesigned yet.
-//
-// p2_kernel and p3_kernel: bound and design. Bytes (each input read
-// once, each output written once) at the flagship shape B = 512,
-// P = 4096, over 3.35 TB/s: p2 159.4 MB -> 47.6 us; p3 size 83.9 MB ->
-// 25.0 us; p3 materialize 130.0 MB -> 38.8 us. Each walk is a serial
-// recurrence over P with carried state, so none reaches that bound:
-// what sets its time is the latency of one step of the carried chain.
-// The first design (one warp per block, loads straight from device
-// memory in the chain) paid one memory latency a step: 3.29, 2.19 and
-// 5.67 ms. This design takes the memory out of the chain:
+// Bound: bytes (each input read once, each output written once) at the
+// flagship shape B = 512, P = 4096, over 3.35 TB/s: p1 92.3 MB -> 27.6
+// us; p2 159.4 MB -> 47.6 us; p3 size 83.9 MB -> 25.0 us; p3
+// materialize 130.0 MB -> 38.8 us. Each walk is a serial recurrence
+// over P with carried state, so none reaches that bound: what sets its
+// time is the latency of one step of the carried chain. The first
+// design (one thread per (stream, candidate) for p1, one warp per block
+// for p2/p3, loads straight from device memory in the chain) paid one
+// memory latency a step: 1.20, 3.29, 2.19 and 5.67 ms. This design
+// takes the memory out of the chain (the ring machinery is in
+// walk_ring.cuh):
 //   - a CTA holds a tile of 4 streams x 8 candidates: warp 0 is the 32
 //     walkers, warps 1.. are helpers (the launch geometry, chunk length
 //     and shared-memory bytes come from encode_kernels.walk_geometry);
 //   - the helpers fill a 2-stage ring of shared-memory stages, each a
-//     chunk of L positions (p2 from high p to low, as it walks; p3 with
-//     one overlap row of coef for the p+1 look-ahead, and half-height
-//     tiles of the line planes), with cp.async (4-byte copies for the
-//     [P, B] planes, so any B is served; 16-byte copies for the
-//     [P, B, 8] planes, whose 32-byte rows are always aligned);
+//     chunk of L positions (p1 and p3 from low p to high, p2 from high
+//     to low, as each walks; p3 with one overlap row of coef for the
+//     p+1 look-ahead, and half-height tiles of the line planes), with
+//     cp.async (4-byte copies for the [P, B] planes, so any B is served;
+//     16-byte copies for the [P, B, 8] planes, whose 32-byte rows are
+//     always aligned);
 //   - the helpers run a carry-free pre-pass over each chunk, data-
 //     parallel over (position, walker), that packs into one or two
 //     shared-memory words everything that does not depend on the
-//     carried state (p2: kept, qi, split, thr & 63, p + segdelta; p3:
-//     the event class, run length and count, segment and tail bits,
-//     and, when materializing, the coefficient and noise nybbles, whose
-//     three cq_unsigned square roots thereby leave the chain);
+//     carried state (p1: |coef| with denormals flushed and the kept bit
+//     in its sign bit, plus the segment-start bit per stream; p2: kept,
+//     qi, split, thr & 63, p + segdelta; p3: the event class, run length
+//     and count, segment and tail bits, and, when materializing, the
+//     coefficient and noise nybbles, whose three cq_unsigned square
+//     roots thereby leave the chain);
 //   - the walkers step through the previous chunk reading one or two
-//     words from shared memory and update only the carry; p2 writes its
-//     state rows to a shared-memory stage that the helpers store as
-//     16-byte rows, p3 materialize stores each completed word at its
+//     words from shared memory and update only the carry; p1 and p2
+//     write one word per (position, walker) to a shared-memory stage
+//     that the helpers store as 16-byte rows (p1's helpers first turn
+//     the running max into the zone quantizer, so its logf leaves the
+//     chain too), p3 materialize stores each completed word at its
 //     index;
 //   - one __syncthreads a chunk separates load (chunk k+1), pre-pass
-//     (k), walk (k-1) and store (k-2).
+//     (k), walk (k-1) and post-pass and store (k-2).
 //
 // Numerics: built without --use_fast_math, so logf/sqrtf are the
 // accurate ones and denormals are not flushed behind the code's back
@@ -63,21 +65,11 @@
 // round each operation separately. Every float -> int conversion is
 // clipped first.
 
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "walk_ring.cuh"
 
 namespace {
 
-constexpr int kCand = 8;
 constexpr int kSent = 1 << 20;   // "no position" sentinel (> any p)
-// p1: one warp per block; B = 512 gives 128 blocks, spread over 128 SMs
-constexpr int kThreads = 32;
-// p2/p3: streams per CTA; warp 0 holds their kTile * kCand walkers
-constexpr int kTile = 4;
-constexpr int kWalkers = kTile * kCand;
-constexpr int kStages = 2;
-constexpr int kMaxThreads = 256;
 // BuildQuantizer constants (reference ulcEncoder_Encode.c:50-87):
 // qi = clip(floor(A - log2(max)), 5, 31), A = 5 + log2(1.5)
 constexpr float kBqA = 0x1.657006p2f;
@@ -103,51 +95,28 @@ __device__ __forceinline__ float exp2i(int q) {
   return __int_as_float((q + 127) << 23);
 }
 
-// Forward zone scan: running min/max of |coef| over kept positions,
-// reset at segment starts, zone split when max > 4 * min. Emits the
-// zone quantizer index qi | split << 5.
-__global__ void p1_kernel(const int* __restrict__ t, const int* __restrict__ c,
-                          const int* __restrict__ key, const float* __restrict__ coef,
-                          const int* __restrict__ aux, int* __restrict__ s12, int B, int P) {
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= B * kCand) return;
-  const int b = tid / kCand;
-  const int tt = t[tid], cc = c[tid];
-  float qmin = 1000.0f, qmax = -1000.0f;
-  for (int p = 0; p < P; ++p) {
-    const size_t pb = static_cast<size_t>(p) * B + b;
-    // denormal magnitudes count as zero, as on the TPU the zone logic
-    // was written for (it flushes them); IEEE compares would split
-    // zones at max(0, denormal) > 4 * 0
-    float a = fabsf(coef[pb]);
-    if (a < kFltMin) a = 0.0f;
-    const bool kept = kept_at(key[pb], tt, cc, p);
-    if ((aux[pb] >> 16) & 1) {
-      qmin = 1000.0f;
-      qmax = -1000.0f;
-    }
-    const float nmin = fminf(qmin, a), nmax = fmaxf(qmax, a);
-    const bool split = kept && (nmax > __fmul_rn(nmin, 4.0f));
-    if (kept) {
-      qmin = split ? a : nmin;
-      qmax = split ? a : nmax;
-    }
-    // clip in float before the int conversion: log of a flushed or zero
-    // maximum is -inf and the quotient +inf
-    float x = floorf(__fsub_rn(kBqA, __fmul_rn(kInvLn2, logf(fmaxf(qmax, 1e-38f)))));
-    x = fminf(fmaxf(x, 5.0f), 31.0f);
-    s12[pb * kCand + (tid % kCand)] = static_cast<int>(x) | (static_cast<int>(split) << 5);
-  }
-}
-
-// --- shared machinery of the p2/p3 walks ------------------------------------
-
-// Bytes of n 4-byte elements, rounded up to 16 so every array starts
-// 16-byte aligned. Mirrored by encode_kernels.walk_smem_bytes.
-__host__ __device__ constexpr int arr(int n) { return (n * 4 + 15) / 16 * 16; }
+// --- stage layouts ----------------------------------------------------------
 
 // One stage's arrays, as byte offsets from the stage's base; the ring
-// holds kStages stages back to back, then `extra` bytes.
+// holds kStages stages back to back, then `extra` bytes. Mirrored by
+// encode_kernels.walk_smem_bytes.
+struct P1Layout {
+  int key, coef, aux, seg, pp, out, stage, tc, total;
+};
+__host__ __device__ inline P1Layout p1_layout(int L) {
+  P1Layout l{};
+  l.key = 0;
+  l.coef = l.key + arr(L * kTile);
+  l.aux = l.coef + arr(L * kTile);
+  l.seg = l.aux + arr(L * kTile);
+  l.pp = l.seg + arr(L * kTile);
+  l.out = l.pp + arr(L * kWalkers);
+  l.stage = l.out + arr(L * kWalkers);
+  l.tc = kStages * l.stage;
+  l.total = l.tc + arr(2 * kWalkers);
+  return l;
+}
+
 struct P2Layout {
   int key, thr, aux, s12, pp, out, stage, tc, total;
 };
@@ -186,44 +155,125 @@ __host__ __device__ inline P3Layout p3_layout(int L, bool mat) {
   return l;
 }
 
-// Positions [lo, hi) of chunk k in walk order.
-struct Span {
-  int lo, hi;
-};
-__device__ __forceinline__ Span chunk_span(int k, int L, int P, bool reverse) {
-  if (reverse) {
-    const int hi = P - k * L;
-    return {max(hi - L, 0), hi};
+// --- p1 ---------------------------------------------------------------------
+
+// The zone quantizer of a post-pass word: qi = clip(floor(A - log2(m)),
+// 5, 31) | split << 5, from m = max(qmax, 1e-38) in bits 0-30 and the
+// split bit in bit 31. Clipped in float before the int conversion: log
+// of a flushed or zero maximum is -inf and the quotient +inf.
+__device__ __forceinline__ int zone_qi(uint32_t w) {
+  float x = floorf(__fsub_rn(kBqA, __fmul_rn(kInvLn2, logf(__uint_as_float(w & 0x7FFFFFFFu)))));
+  x = fminf(fmaxf(x, 5.0f), 31.0f);
+  return static_cast<int>(x) | static_cast<int>((w >> 31) << 5);
+}
+
+// Forward zone scan: running min/max of |coef| over kept positions,
+// reset at segment starts, zone split when max > 4 * min. Emits the
+// zone quantizer index qi | split << 5.
+//
+// Pre-pass word: bits 0-30 |coef| with denormal magnitudes flushed to 0
+// (as on the TPU the zone logic was written for: IEEE compares would
+// split zones at max(0, denormal) > 4 * 0) | kept << 31; per (position,
+// stream) the segment-start bit. Walker word: bits 0-30 max(qmax, 1e-38)
+// | split << 31, which the post-pass turns into qi.
+__global__ void __launch_bounds__(kMaxThreads)
+    p1_kernel(const int* __restrict__ t, const int* __restrict__ c, const int* __restrict__ key,
+              const float* __restrict__ coef, const int* __restrict__ aux, int* __restrict__ s12,
+              int B, int P, int L) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const P1Layout ly = p1_layout(L);
+  const int b0 = blockIdx.x * kTile, ns = min(kTile, B - b0);
+  const int nchunks = (P + L - 1) / L;
+  const int tid = threadIdx.x, nh = blockDim.x - kWalkers, h = tid - kWalkers;
+  int* tc_s = reinterpret_cast<int*>(smem + ly.tc);
+  auto arr_at = [&](int k, int off) { return reinterpret_cast<int*>(smem + (k & 1) * ly.stage + off); };
+
+  auto load = [&](int k) {
+    const Span s = chunk_span(k, L, P, false);
+    const int n = s.hi - s.lo;
+    copy_rows(arr_at(k, ly.key), kTile, key, s.lo, n, B, b0, ns, h, nh);
+    copy_rows(arr_at(k, ly.coef), kTile, reinterpret_cast<const int*>(coef), s.lo, n, B, b0, ns,
+              h, nh);
+    copy_rows(arr_at(k, ly.aux), kTile, aux, s.lo, n, B, b0, ns, h, nh);
+  };
+
+  if (tid >= kWalkers) {
+    for (int i = h; i < ns * kCand; i += nh) {
+      tc_s[i] = t[b0 * kCand + i];
+      tc_s[kWalkers + i] = c[b0 * kCand + i];
+    }
+    load(0);
+    __pipeline_commit();
   }
-  const int lo = k * L;
-  return {lo, min(lo + L, P)};
-}
+  __syncthreads();
 
-// The helper warps' own barrier (warp 0 walks meanwhile).
-__device__ __forceinline__ void helpers_sync(int nh) {
-  asm volatile("bar.sync 1, %0;" ::"r"(nh) : "memory");
-}
-
-// rows [row0, row0 + n) x streams [b0, b0 + ns) of a [rows, B] plane ->
-// dst[i * kTile + j], one 4-byte cp.async each
-__device__ __forceinline__ void copy_rows(int* dst, const int* src, int row0, int n, int B,
-                                          int b0, int ns, int h, int nh) {
-  for (int e = h; e < n * ns; e += nh) {
-    const int i = e / ns, j = e - i * ns;
-    __pipeline_memcpy_async(dst + i * kTile + j, src + static_cast<size_t>(row0 + i) * B + b0 + j,
-                            4);
-  }
-}
-
-// rows [row0, row0 + n) of a [P, B, 8] plane, streams [b0, b0 + ns) ->
-// dst[i * kWalkers + lane], 16-byte cp.async pieces
-__device__ __forceinline__ void copy_cand_rows(int* dst, const int* src, int row0, int n, int B,
-                                               int b0, int ns, int h, int nh) {
-  const int per_row = ns * 2;
-  for (int e = h; e < n * per_row; e += nh) {
-    const int i = e / per_row, q = e - i * per_row;
-    __pipeline_memcpy_async(dst + i * kWalkers + q * 4,
-                            src + (static_cast<size_t>(row0 + i) * B + b0) * kCand + q * 4, 16);
+  const int lane = tid & 31, j = lane / kCand;
+  float qmin = 1000.0f, qmax = -1000.0f;
+  for (int k = 0; k <= nchunks + 1; ++k) {
+    if (tid < kWalkers) {
+      if (k >= 1 && k <= nchunks) {  // walk chunk k - 1
+        const Span s = chunk_span(k - 1, L, P, false);
+        const int n = s.hi - s.lo;
+        const uint32_t* pp = reinterpret_cast<const uint32_t*>(arr_at(k - 1, ly.pp));
+        const int* seg = arr_at(k - 1, ly.seg);
+        uint32_t* out = reinterpret_cast<uint32_t*>(arr_at(k - 1, ly.out));
+#pragma unroll 4
+        for (int i = 0; i < n; ++i) {
+          const uint32_t w = pp[i * kWalkers + lane];
+          if (seg[i * kTile + j]) {
+            qmin = 1000.0f;
+            qmax = -1000.0f;
+          }
+          const float a = __uint_as_float(w & 0x7FFFFFFFu);
+          const bool kept = w >> 31;
+          const float nmin = fminf(qmin, a), nmax = fmaxf(qmax, a);
+          const bool split = kept && (nmax > __fmul_rn(nmin, 4.0f));
+          if (kept) {
+            qmin = split ? a : nmin;
+            qmax = split ? a : nmax;
+          }
+          out[i * kWalkers + lane] =
+              __float_as_uint(fmaxf(qmax, 1e-38f)) | (static_cast<uint32_t>(split) << 31);
+        }
+      }
+    } else {
+      if (k + 1 < nchunks) load(k + 1);
+      __pipeline_commit();
+      __pipeline_wait_prior(1);  // this thread's copies of chunk k landed
+      helpers_sync(nh);          // and every helper's
+      if (k < nchunks) {         // pre-pass of chunk k
+        const Span s = chunk_span(k, L, P, false);
+        const int n = s.hi - s.lo;
+        const int* key_s = arr_at(k, ly.key);
+        const int* coef_s = arr_at(k, ly.coef);
+        const int* aux_s = arr_at(k, ly.aux);
+        int* seg = arr_at(k, ly.seg);
+        uint32_t* pp = reinterpret_cast<uint32_t*>(arr_at(k, ly.pp));
+        for (int e = h; e < n * kWalkers; e += nh) {
+          const int i = e / kWalkers, wl = e % kWalkers, jj = wl / kCand;
+          if (jj >= ns) continue;
+          const int x = i * kTile + jj;
+          float a = fabsf(__int_as_float(coef_s[x]));
+          if (a < kFltMin) a = 0.0f;
+          const bool kept = kept_at(key_s[x], tc_s[wl], tc_s[kWalkers + wl], s.lo + i);
+          pp[e] = __float_as_uint(a) | (static_cast<uint32_t>(kept) << 31);
+        }
+        for (int e = h; e < n * kTile; e += nh) seg[e] = (aux_s[e] >> 16) & 1;
+      }
+      if (k >= 2) {  // post-pass: chunk k - 2's zone quantizers, 16 bytes a thread
+        const Span s = chunk_span(k - 2, L, P, false);
+        const uint32_t* out = reinterpret_cast<const uint32_t*>(arr_at(k - 2, ly.out));
+        const int per_row = ns * 2;
+        for (int e = h; e < (s.hi - s.lo) * per_row; e += nh) {
+          const int i = e / per_row, q = e - i * per_row;
+          const uint4 w = *reinterpret_cast<const uint4*>(out + i * kWalkers + q * 4);
+          *reinterpret_cast<int4*>(s12 + (static_cast<size_t>(s.lo + i) * B + b0) * kCand +
+                                   q * 4) =
+              make_int4(zone_qi(w.x), zone_qi(w.y), zone_qi(w.z), zone_qi(w.w));
+        }
+      }
+    }
+    __syncthreads();
   }
 }
 
@@ -250,9 +300,9 @@ __global__ void __launch_bounds__(kMaxThreads)
   auto load = [&](int k) {
     const Span s = chunk_span(k, L, P, true);
     const int n = s.hi - s.lo;
-    copy_rows(arr_at(k, ly.key), key, s.lo, n, B, b0, ns, h, nh);
-    copy_rows(arr_at(k, ly.thr), thr, s.lo, n, B, b0, ns, h, nh);
-    copy_rows(arr_at(k, ly.aux), aux, s.lo, n, B, b0, ns, h, nh);
+    copy_rows(arr_at(k, ly.key), kTile, key, s.lo, n, B, b0, ns, h, nh);
+    copy_rows(arr_at(k, ly.thr), kTile, thr, s.lo, n, B, b0, ns, h, nh);
+    copy_rows(arr_at(k, ly.aux), kTile, aux, s.lo, n, B, b0, ns, h, nh);
     copy_cand_rows(arr_at(k, ly.s12), s12, s.lo, n, B, b0, ns, h, nh);
   };
 
@@ -368,7 +418,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   auto load = [&](int k) {
     const Span s = chunk_span(k, L, P, false);
     const int n = s.hi - s.lo;
-    copy_rows(arr_at(k, ly.aux), aux, s.lo, n, B, b0, ns, h, nh);
+    copy_rows(arr_at(k, ly.aux), kTile, aux, s.lo, n, B, b0, ns, h, nh);
     copy_cand_rows(arr_at(k, ly.st), state, s.lo, n, B, b0, ns, h, nh);
     if (kMat) {
       // rows lo..hi: the last is the p + 1 look-ahead, clipped at P - 1
@@ -380,13 +430,13 @@ __global__ void __launch_bounds__(kMaxThreads)
             coef + static_cast<size_t>(min(s.lo + i, P - 1)) * B + b0 + j, 4);
       }
       const int line0 = s.lo >> 1, nl = (n + 1) >> 1;
-      copy_rows(arr_at(k, ly.ampn), reinterpret_cast<const int*>(ampn), line0, nl, B, b0, ns, h,
-                nh);
-      copy_rows(arr_at(k, ly.hfamp), reinterpret_cast<const int*>(hfamp), line0, nl, B, b0, ns,
-                h, nh);
-      copy_rows(arr_at(k, ly.hfmeta), hfmeta, line0, nl, B, b0, ns, h, nh);
+      copy_rows(arr_at(k, ly.ampn), kTile, reinterpret_cast<const int*>(ampn), line0, nl, B, b0,
+                ns, h, nh);
+      copy_rows(arr_at(k, ly.hfamp), kTile, reinterpret_cast<const int*>(hfamp), line0, nl, B,
+                b0, ns, h, nh);
+      copy_rows(arr_at(k, ly.hfmeta), kTile, hfmeta, line0, nl, B, b0, ns, h, nh);
     } else {
-      copy_rows(arr_at(k, ly.thr), thr, s.lo, n, B, b0, ns, h, nh);
+      copy_rows(arr_at(k, ly.thr), kTile, thr, s.lo, n, B, b0, ns, h, nh);
     }
   };
 
@@ -612,20 +662,6 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-inline int grid_for(int B) { return (B * kCand + kThreads - 1) / kThreads; }
-
-// Checks the geometry the wrapper passes (encode_kernels.walk_geometry)
-// against this file's layout, and lets the kernel take that much
-// dynamic shared memory. Returns a cudaError_t.
-template <typename Kernel>
-int prepare_walk(Kernel kernel, int L, int threads, int smem, int want_smem) {
-  if (L < 2 || L % 2 || threads < 2 * kWalkers || threads > kMaxThreads || threads % 32 ||
-      smem != want_smem)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-}
-
 inline int walk_grid(int B) { return (B + kTile - 1) / kTile; }
 
 }  // namespace
@@ -637,18 +673,22 @@ inline int walk_grid(int B) { return (B + kTile - 1) / kTile; }
 extern "C" {
 
 int ulcx_p1(const void* t, const void* c, const void* key, const void* coef, const void* aux,
-            void* s12, int B, int P, void* stream) {
-  p1_kernel<<<grid_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            void* s12, int B, int P, int L, int threads, int smem, void* stream) {
+  static int allowed[kMaxDevices];
+  const int rc = prepare_walk(p1_kernel, allowed, L, threads, smem, p1_layout(L).total);
+  if (rc) return rc;
+  p1_kernel<<<walk_grid(B), threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(t), static_cast<const int*>(c), static_cast<const int*>(key),
       static_cast<const float*>(coef), static_cast<const int*>(aux), static_cast<int*>(s12), B,
-      P);
+      P, L);
   return static_cast<int>(cudaGetLastError());
 }
 
 int ulcx_p2(const void* t, const void* c, const void* key, const void* thr, const void* aux,
             const void* s12, void* state, int B, int P, int L, int threads, int smem,
             void* stream) {
-  const int rc = prepare_walk(p2_kernel, L, threads, smem, p2_layout(L).total);
+  static int allowed[kMaxDevices];
+  const int rc = prepare_walk(p2_kernel, allowed, L, threads, smem, p2_layout(L).total);
   if (rc) return rc;
   p2_kernel<<<walk_grid(B), threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(t), static_cast<const int*>(c), static_cast<const int*>(key),
@@ -659,7 +699,9 @@ int ulcx_p2(const void* t, const void* c, const void* key, const void* thr, cons
 
 int ulcx_p3_size(const void* thr, const void* aux, const void* state, void* bits, int B, int P,
                  int L, int threads, int smem, void* stream) {
-  const int rc = prepare_walk(p3_kernel<false>, L, threads, smem, p3_layout(L, false).total);
+  static int allowed[kMaxDevices];
+  const int rc =
+      prepare_walk(p3_kernel<false>, allowed, L, threads, smem, p3_layout(L, false).total);
   if (rc) return rc;
   p3_kernel<false><<<walk_grid(B), threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(thr), static_cast<const int*>(aux), static_cast<const int*>(state),
@@ -672,7 +714,9 @@ int ulcx_p3_materialize(const void* aux, const void* state, const void* coef, co
                         const void* hfamp, const void* hfmeta, const void* hdr, void* bits,
                         void* words, void* freg, void* fwc, int B, int P, int n_words, int L,
                         int threads, int smem, void* stream) {
-  const int rc = prepare_walk(p3_kernel<true>, L, threads, smem, p3_layout(L, true).total);
+  static int allowed[kMaxDevices];
+  const int rc =
+      prepare_walk(p3_kernel<true>, allowed, L, threads, smem, p3_layout(L, true).total);
   if (rc) return rc;
   p3_kernel<true><<<walk_grid(B), threads, smem, static_cast<cudaStream_t>(stream)>>>(
       nullptr, static_cast<const int*>(aux), static_cast<const int*>(state),
