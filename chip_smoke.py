@@ -6,7 +6,8 @@
 Phases, each of which raises on failure:
 
 1. device: require CUDA, turn TF32 off, print the card's name and power limit;
-2. build the four encode-walk and three decode kernels from
+2. build the four encode-walk and four decode kernels (the FSM in its
+   record and its placing mode, RNG-expand, RNG) from
    ``ulcx_torch/csrc`` (one nvcc call), print each kernel's registers
    and spills as ptxas reports them, and check that every entry point
    that takes a launch geometry refuses one whose shared-memory bytes
@@ -26,16 +27,22 @@ Phases, each of which raises on failure:
 6. decode kernels vs plain: phase 4's bytes packed into streams as
    bench.py packs them, windows of the first and of a later block at the
    bench's window size, at B=128, B=512 and a ragged B=13 (not a
-   multiple of the RNG kernels' stream tile); each decode kernel's
+   multiple of the decode kernels' stream tile); each decode kernel's
    outputs identical to its plain version's (coefficients as bits), both
-   timed; then RNG-expand and RNG on synthetic record flags (B=13,
-   P=4096) whose first record is a steep tail that decays through the
-   flush to zero over a dozen of the kernels' chunks;
+   timed, the flags that feed the RNG kernels being the placing FSM's;
+   then both FSM modes at B=13 on windows the encoder never writes
+   (random bytes and real windows with a random second half, which go
+   corrupt mid-block; windows cut short, which exhaust their tokens; and
+   windows coded coefficient by coefficient, 33 of the kernel's chunks
+   long), all 16 window patterns among them; then RNG-expand and RNG on
+   synthetic record flags (B=13, P=4096) whose first record is a steep
+   tail that decays through the flush to zero over a dozen of the
+   kernels' chunks;
 7. decode main path: ``batch_decode`` of those streams at B=512, T=8 on
    the card; no corrupt block, every block's bits rounded up to bytes
-   equal to its encoded size, the launch counters exactly T x (1, 1, 0),
-   a second run bit-identical; prints the decode realtime factor and the
-   round-trip SNR;
+   equal to its encoded size, the launch counters exactly T x (0, 1, 1,
+   0) for (fsm, fsm_place, rng_expand, rng), a second run bit-identical;
+   prints the decode realtime factor and the round-trip SNR;
 8. decode CUDA vs CPU: the first 8 streams, 2 blocks, on the CPU port;
    bits and corrupt exact, PCM within 1e-5 RMS.
 
@@ -80,15 +87,22 @@ REPLACES = {
     "p3_size": "ulcx/bitstream/pallas_encode3.py:254",
     "p3_materialize": "ulcx/bitstream/pallas_encode3.py:254",
     "fsm": "ulcx/bitstream/pallas_decode.py:99",
+    "fsm_place": "ulcx/bitstream/pallas_decode.py:99 with the placement "
+                 "ulcx/bitstream/fast_decode.py:88",
     "rng_expand": "ulcx/bitstream/pallas_decode.py:393",
     "rng": "ulcx/bitstream/pallas_decode.py:346",
 }
 PER_BLOCK = {"p1": 3, "p2": 3, "p3_size": 2, "p3_materialize": 1}
 REDESIGNED = {"p1": "PR 4", "p2": "PR 3", "p3_size": "PR 3", "p3_materialize": "PR 3",
-              "rng_expand": "PR 4", "rng": "PR 4"}
+              "fsm": "PR 5", "fsm_place": "PR 5", "rng_expand": "PR 4", "rng": "PR 4"}
+NOTES = {
+    "fsm": "not on a main path: held against its plain version only, launched by fsm_records",
+    "rng": "not on a main path: held against its plain version only",
+}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 RAGGED_B, RAGGED_BS, RAGGED_CHAN = 13, 256, 3
-DEC_PER_BLOCK = {"fsm": 1, "rng_expand": 1, "rng": 0}
+DEC_PER_BLOCK = {"fsm": 0, "fsm_place": 1, "rng_expand": 1, "rng": 0}
+TRUNCATED_BYTES = 48  # ~94 tokens, fewer than any block needs
 
 
 def phase(name):
@@ -372,12 +386,13 @@ def decode_kernels_vs_plain(cfg, streams, offs, win, device):
         windows = torch.gather(streams, 1, offs[:, blk : blk + 1] + torch.arange(win)).to(device)
         wc, _, tokens = fd._header_and_tokens(windows)
         seed = stream_seeds(windows.shape[0], blk).to(device)
-        rec, code, _, corrupt = dk.fsm(wc, tokens, p_tot, cfg.block_size)
+        fsm_args = (wc, tokens, p_tot, cfg.block_size)
+        flags, _, corrupt = dk.fsm_place(*fsm_args)
         if bool(corrupt.any()):
             raise AssertionError(f"block {blk}: {int(corrupt.sum())} windows decode as corrupt")
-        flags = fd._place(rec, code, p_tot)
         calls = {
-            "fsm": (dk.fsm, dk.fsm_plain, (wc, tokens, p_tot, cfg.block_size)),
+            "fsm": (dk.fsm, dk.fsm_plain, fsm_args),
+            "fsm_place": (dk.fsm_place, dk.fsm_place_plain, fsm_args),
             "rng_expand": (dk.rng_expand, dk.rng_expand_plain, (flags, seed)),
             "rng": (dk.rng, dk.rng_plain, (dk.rng_flags(flags), seed)),
         }
@@ -386,6 +401,78 @@ def decode_kernels_vs_plain(cfg, streams, offs, win, device):
             if blk == 0:
                 results[name] = res
     return results
+
+
+def all_coef_window(rng, n, n_chan, w, wc_nybbles):
+    """A window of w bytes whose every segment is coded coefficient by
+    coefficient: the header nybbles, then per segment a quantizer nybble
+    and one coefficient nybble per position. It ends after n_chan *
+    (segments + n) tokens."""
+    import numpy as np
+
+    from ulcx_torch.ops.patterns import pattern_subblock_sizes
+
+    pat = (wc_nybbles[1] if len(wc_nybbles) == 2 else 1) or 1
+    ny = list(wc_nybbles)
+    for _ in range(n_chan):
+        for ss in pattern_subblock_sizes(pat, n):
+            ny.append(int(rng.integers(0, 14)))
+            ny.extend(rng.choice([2, 3, 4, 5, 6, 7, 9, 10, 11, 12, 13, 14], ss).tolist())
+    ny = np.array(ny + [0] * (2 * w - len(ny)), np.uint8)
+    return ny[0::2] | (ny[1::2] << 4)
+
+
+def fsm_vs_plain_synthetic(cfg, streams, win, device):
+    """Phase 6: both FSM modes against their plain versions at B =
+    RAGGED_B on windows the encoder never writes: (a) random bytes under
+    headers of patterns 0-7 and real windows whose second half is random
+    (corrupt mid-block, the records before kept); (b) real windows cut
+    to TRUNCATED_BYTES (every token read, no end); (c) all-coefficient
+    windows of patterns 3-15, ~4,100 tokens each."""
+    import numpy as np
+    import torch
+
+    from ulcx_torch.bitstream import decode_kernels as dk
+    from ulcx_torch.bitstream import fast_decode as fd
+
+    b, n, p_tot = RAGGED_B, cfg.block_size, cfg.n_chan * cfg.block_size
+    rng = np.random.default_rng(16)
+    real = streams[:b, :win].numpy()
+    broken = rng.integers(0, 256, (b, win)).astype(np.uint8)
+    broken[:8, 0] = 0x8 | (np.arange(8) << 4)  # 2-nybble headers, patterns 0-7
+    broken[8:, : win // 4] = real[8:, : win // 4]
+    w_long = p_tot // 2 + 32
+    long = np.stack([all_coef_window(rng, n, cfg.n_chan, w_long, [0x8, 3 + i]) for i in range(b)])
+    cases = {"random": broken, "truncated": real[:, :TRUNCATED_BYTES].copy(),
+             "all-coefficient": long}
+    patterns = set()
+    for label, windows in cases.items():
+        wc, _, tokens = fd._header_and_tokens(torch.from_numpy(windows).to(device))
+        patterns |= set(((wc >> 4) & 15).tolist())
+        args = (wc, tokens, p_tot, n)
+        label = f"{label} windows B={b} T={tokens.shape[0]}"
+        _, (rec, _, consumed, corrupt) = decode_vs_plain("fsm", dk.fsm, dk.fsm_plain, args, label)
+        _, (flags, consumed_p, corrupt_p) = decode_vs_plain(
+            "fsm_place", dk.fsm_place, dk.fsm_place_plain, args, label)
+        if not (torch.equal(consumed, consumed_p) and torch.equal(corrupt, corrupt_p)):
+            raise AssertionError(f"{label}: the FSM's two modes disagree on consumed or corrupt")
+        records = ((rec >> 15) != 0).sum(0)
+        if not torch.equal(records, (flags & 1).sum(0)):
+            raise AssertionError(f"{label}: the flags hold other records than the record plane")
+        consumed, corrupt, records = consumed.cpu(), corrupt.cpu(), records.cpu()
+        if label.startswith("random"):
+            ok = bool(corrupt.any()) and bool((records[corrupt == 1] > 0).any()) \
+                and bool((consumed[corrupt == 1] < tokens.shape[0]).any())
+        elif label.startswith("truncated"):
+            ok = bool((corrupt == 1).all()) and bool((consumed == tokens.shape[0]).all())
+        else:
+            ok = not bool(corrupt.any()) and bool((consumed > p_tot).all()) \
+                and bool((records == p_tot).all())
+        if not ok:
+            raise AssertionError(f"{label}: consumed {consumed.tolist()}, corrupt "
+                                 f"{corrupt.tolist()}, records {records.tolist()}")
+    if patterns != set(range(16)):
+        raise AssertionError(f"window patterns {sorted(patterns)}: not all 16")
 
 
 def synthetic_flags(rng, n_pos, b):
@@ -514,6 +601,9 @@ def refuse_other_geometry(lib):
     cases = {f"ulcx_{k}": (b, n_pos, *ek._geometry_ints(k, n_pos, b))
              for k in ("p1", "p2", "p3_size")}
     cases["ulcx_p3_materialize"] = (b, n_pos, 64, *ek._geometry_ints("p3_materialize", n_pos, b))
+    t_len = 2 * 832 - 2
+    cases["ulcx_fsm"] = (b, t_len, n_pos, BS, *dk._fsm_geometry_ints(t_len, b))
+    cases["ulcx_fsm_place"] = cases["ulcx_fsm"]
     cases["ulcx_rng_expand"] = (b, n_pos, *dk._rng_geometry_ints(n_pos, b, True))
     cases["ulcx_rng"] = (b, n_pos, *dk._rng_geometry_ints(n_pos, b, False))
     for name, ints in cases.items():
@@ -592,6 +682,7 @@ def main() -> int:
         dres[b] = decode_kernels_vs_plain(cfg, streams[:b], offs[:b], win, "cuda")
     print(f"B={RAGGED_B} (ragged), P={2 * BS}:", flush=True)
     decode_kernels_vs_plain(cfg, streams[:RAGGED_B], offs[:RAGGED_B], win, "cuda")
+    fsm_vs_plain_synthetic(cfg, streams, win, "cuda")
     rng_vs_plain_synthetic(2 * BS, RAGGED_B, "cuda")
 
     phase("7 decode main path")
@@ -614,8 +705,8 @@ def main() -> int:
         if name in REDESIGNED:
             row["bound_us"] = bound_ms * 1e3
             row["redesigned"] = REDESIGNED[name]
-        if name == "rng":
-            row["note"] = "not on a main path: held against its plain version only"
+        if name in NOTES:
+            row["note"] = NOTES[name]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

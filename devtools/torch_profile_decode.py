@@ -11,14 +11,16 @@ plus 64, as ``bench.py`` sizes it). Prints
 1. host-synchronised layers, ms per block (median over the T blocks of
    the second of two passes), the same calls as
    ``decoder.decode_stream_batched`` and ``fast_decode.decode_block_fast``:
-   window gather, nybbles + token plane, FSM, record scatter,
-   RNG-expand, corrupt mask + transpose, inverse transform, inverse M/S,
-   offset advance, each ending in a synchronise;
+   window gather, nybbles + token plane, FSM + placement (the placing
+   FSM kernel; on a tree from before it, the FSM kernel and the record
+   scatter together), RNG-expand, corrupt mask + transpose, inverse
+   transform, inverse M/S, offset advance, each ending in a synchronise;
 2. ms per block of five warm, unprofiled ``batch_decode`` calls;
 3. the device view of one warm ``batch_decode`` under ``torch.profiler``:
    its wall time, device busy time and share (kernels run on one stream,
    so their sum is their union), and device ms by group: the two decode
-   kernels by name, float32 GEMMs, everything else;
+   kernels by name, float32 GEMMs, everything else (which holds the
+   record scatter's kernels on a tree from before the placing FSM);
 
 then one JSON line with the same numbers. Imports nothing of JAX.
 """
@@ -32,7 +34,7 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, T, BS, RATE_KBPS = 512, 8, 2048, 128.0
-KERNELS = ("fsm_kernel", "rng_kernel<true>")
+KERNELS = ("fsm_kernel", "rng_kernel<true>")  # fsm_kernel<true> too, by its prefix
 
 
 def layers(cfg, streams, win):
@@ -47,6 +49,11 @@ def layers(cfg, streams, win):
 
     b, s_len = streams.shape
     n, c = cfg.block_size, cfg.n_chan
+    fsm_place = getattr(dk, "fsm_place", None)
+    if fsm_place is None:  # a tree from before the placing kernel: its two steps
+        def fsm_place(wc, tokens, p_tot, n):
+            rec, code, consumed, corrupt = dk.fsm(wc, tokens, p_tot, n)
+            return fd._place(rec, code, p_tot), consumed, corrupt
     lap, prev_ss, seed = DecoderCarry.init(cfg, b, streams.device)
     offset = torch.zeros(b, dtype=torch.int64, device=streams.device)
     span = torch.arange(win, device=streams.device)
@@ -55,8 +62,7 @@ def layers(cfg, streams, win):
         windows, t_win = _sync_ms(
             lambda: torch.gather(streams, 1, torch.clamp(offset, max=s_len - win)[:, None] + span))
         (wc, hdr, tokens), t_tok = _sync_ms(fd._header_and_tokens, windows)
-        (rec, code, consumed, corrupt), t_fsm = _sync_ms(dk.fsm, wc, tokens, n * c, n)
-        flags, t_place = _sync_ms(fd._place, rec, code, n * c)
+        (flags, consumed, corrupt), t_fsm = _sync_ms(fsm_place, wc, tokens, n * c, n)
         (coef, seed), t_rng = _sync_ms(dk.rng_expand, flags, seed)
         coefs, t_mask = _sync_ms(
             lambda: torch.where((corrupt == 1)[None], 0.0, coef).T.contiguous().reshape(-1, c, n))
@@ -64,8 +70,8 @@ def layers(cfg, streams, win):
         _, t_ms = _sync_ms(inverse_ms, pcm)
         bits = 4 * (hdr + consumed)
         offset, t_off = _sync_ms(lambda: offset + (bits + 7) // 8)
-        rows.append((t_win, t_tok, t_fsm, t_place, t_rng, t_mask, t_imdct, t_ms, t_off))
-    names = ("window gather", "nybbles + tokens", "FSM", "record scatter", "RNG-expand",
+        rows.append((t_win, t_tok, t_fsm, t_rng, t_mask, t_imdct, t_ms, t_off))
+    names = ("window gather", "nybbles + tokens", "FSM + placement", "RNG-expand",
              "corrupt mask + transpose", "inverse transform", "inverse M/S", "offset advance")
     return {nm: sorted(r[i] for r in rows)[len(rows) // 2] for i, nm in enumerate(names)}
 

@@ -3,17 +3,21 @@
 
     python3 devtools/torch_walk_sweep.py [KIND ...]   # from the repo root; one CUDA GPU
 
-KIND is any of p1, p2, p3_size, p3_materialize, rng_expand, rng (all by
-default).
+KIND is any of p1, p2, p3_size, p3_materialize, fsm, fsm_place,
+rng_expand, rng (all by default).
 
 At the flagship shape (stereo bs2048, P=4096, B=512 streams of
 ``bench.make_corpus``):
 
 - p1, p2, p3 size and p3 materialize on the planes of the first ladder
   round, at each chunk length and helper-warp count below;
-- RNG-expand and RNG on the expansion flags of the first block of those
-  streams' CBR-128 encode, at each stream count per CTA and helper-warp
-  count below (chunk as the wrappers' default);
+- the FSM in its record and its placing mode on the token plane of the
+  first block of those streams' CBR-128 encode (window sized as
+  ``chip_smoke.pack_streams`` sizes it), at each stream count per CTA
+  and helper-warp count below;
+- RNG-expand and RNG on that block's expansion flags, at each stream
+  count per CTA and helper-warp count below (chunk as the wrappers'
+  default);
 
 each launched through its C entry point, every output checked identical
 to the wrappers' default geometry, and timed in ms per launch (CUDA
@@ -31,7 +35,7 @@ B, BS = 512, 2048
 CHUNKS = (64, 128, 256)
 HELPERS = (1, 3, 7)
 RNG_STREAMS = (4, 8, 16, 32)
-KINDS = ("p1", "p2", "p3_size", "p3_materialize", "rng_expand", "rng")
+KINDS = ("p1", "p2", "p3_size", "p3_materialize", "fsm", "fsm_place", "rng_expand", "rng")
 
 
 def sweep(label, name, ins, outs, ints, geometries, want, dev) -> bool:
@@ -122,13 +126,31 @@ def main(kinds) -> int:
         if not sweep(kind, name, ins, make_outs(), (B, n_pos, *extra), geos, want, dev):
             return 1
 
-    if not {"rng_expand", "rng"} & set(kinds):
+    if not {"fsm", "fsm_place", "rng_expand", "rng"} & set(kinds):
         return 0
     out, _ = batch_encode(torch.from_numpy(x).to(dev), cfg, "cbr", rate_kbps=128.0)
     streams, _, win, _ = pack_streams(out)
     wc, _, tokens = fd._header_and_tokens(streams[:, :win].to(dev))
-    rec, code, _, _ = dk.fsm(wc, tokens, n_pos, BS)
-    flags = fd._place(rec, code, n_pos)
+    t_len = tokens.shape[0]
+    flags, _, _ = dk.fsm_place(wc, tokens, n_pos, BS)
+    fsm_ins = (wc, tokens, dk._next_end_tensor(BS, dev), dk._syntax_tensor(dev))
+    fsm = {
+        "fsm": ("ulcx_fsm", lambda: (empty(t_len, B), empty(t_len, B), empty(B), empty(B)),
+                dk.fsm(wc, tokens, n_pos, BS)),
+        "fsm_place": ("ulcx_fsm_place", lambda: (empty(n_pos, B), empty(B), empty(B)),
+                      dk.fsm_place(wc, tokens, n_pos, BS)),
+    }
+    for kind, (name, make_outs, want) in fsm.items():
+        if kind not in kinds:
+            continue
+        geos = []
+        for streams_per_cta in RNG_STREAMS:
+            for helpers in HELPERS:
+                g = dk.fsm_geometry(t_len, B, streams_per_cta, helpers)
+                geos.append((f"streams {streams_per_cta} helpers {helpers}",
+                             (g["streams"], g["chunk"], g["threads"], g["smem"])))
+        if not sweep(kind, name, fsm_ins, make_outs(), (B, t_len, n_pos, BS), geos, want, dev):
+            return 1
     seed = stream_seeds(B, 0).to(dev)
     rng = {
         "rng_expand": ("ulcx_rng_expand", flags, True, dk.rng_expand(flags, seed)),

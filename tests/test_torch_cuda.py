@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from bench import make_corpus
-from chip_smoke import pack_streams, refuse_other_geometry, stream_seeds, synthetic_flags
+from chip_smoke import (
+    all_coef_window, pack_streams, refuse_other_geometry, stream_seeds, synthetic_flags,
+)
 from ulcx_torch import _build
 from ulcx_torch.analysis.batched import analyze_block_batched
 from ulcx_torch.bitstream import decode_kernels as dk
@@ -129,9 +131,9 @@ def _streams(x, cfg):
 
 
 def test_decode_kernels_match_plain(dev):
-    """FSM, RNG-expand and RNG on the card against their plain versions,
-    on the first and last block windows of corpus streams, with garbage
-    windows and seeds that have bit 31 set."""
+    """Both FSM modes, RNG-expand and RNG on the card against their plain
+    versions, on the first and last block windows of corpus streams,
+    with garbage windows and seeds that have bit 31 set."""
     streams, win, sizes = _streams(make_corpus(B, 3, N), CFG)
     off = (sizes[:, :2] // 8).sum(1)
     last = torch.gather(streams, 1, off[:, None] + torch.arange(win))
@@ -142,7 +144,10 @@ def test_decode_kernels_match_plain(dev):
     got = dk.fsm(wc, tokens, P, N)
     for g, w in zip(got, dk.fsm_plain(wc, tokens, P, N)):
         assert torch.equal(g, w)
-    flags = fd._place(got[0], got[1], P)
+    flags, consumed, corrupt = dk.fsm_place(wc, tokens, P, N)
+    assert torch.equal(flags, dk.place_records(got[0], got[1], P))
+    assert torch.equal(consumed, got[2]) and torch.equal(corrupt, got[3])
+    assert 0 < int(corrupt.sum()) < len(corrupt)
     seed = torch.from_numpy(np.random.default_rng(5).integers(0, 2**32, flags.shape[1],
                                                              dtype=np.uint64).astype(np.uint32)
                             .view(np.int32)).to(dev)
@@ -152,7 +157,50 @@ def test_decode_kernels_match_plain(dev):
     (sign, s2), (sign_p, s2_p) = dk.rng(rflags, seed), dk.rng_plain(rflags, seed)
     assert torch.equal(sign, sign_p) and torch.equal(s2, s2_p) and torch.equal(s1, s2)
     torch.cuda.synchronize()
-    assert dk.launch_counts() == {"fsm": 1, "rng_expand": 1, "rng": 1}
+    assert dk.launch_counts() == {"fsm": 1, "fsm_place": 1, "rng_expand": 1, "rng": 1}
+
+
+def _fsm_windows(kind, b):
+    """(windows [b, W] uint8, block size): corpus windows with
+    a random second half, the same cut to 48 bytes, or all-coefficient
+    windows of every pattern from 3 (bs1024: ~2,060 tokens, 17 of the
+    kernel's chunks)."""
+    rng = np.random.default_rng(9)
+    if kind == "long":
+        n = 1024
+        return np.stack([all_coef_window(rng, n, C, 1100, [0x8, 3 + i % 13])
+                         for i in range(b)]), n
+    streams, win, _ = _streams(make_corpus(b, 2, N), CFG)
+    windows = streams[:, :win].numpy().copy()
+    if kind == "truncated":
+        return windows[:, :48].copy(), N
+    windows[:, win // 4:] = rng.integers(0, 256, (b, win - win // 4))
+    windows[: b // 2] = rng.integers(0, 256, (b // 2, win))
+    return windows, N
+
+
+# B = 13 is not a multiple of the FSM kernel's stream tile, and 94, 2198
+# and the corpus window's tokens are no multiple of its chunk
+@pytest.mark.parametrize("kind", ["corrupt", "truncated", "long"])
+def test_fsm_kernels_match_plain_ragged(dev, kind):
+    windows, n = _fsm_windows(kind, 13)
+    wc, _, tokens = fd._header_and_tokens(torch.from_numpy(windows).to(dev))
+    dk.reset_launch_counts()
+    got = dk.fsm(wc, tokens, C * n, n)
+    for g, w in zip(got, dk.fsm_plain(wc, tokens, C * n, n)):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+    placed = dk.fsm_place(wc, tokens, C * n, n)
+    for g, w in zip(placed, dk.fsm_place_plain(wc, tokens, C * n, n)):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+    consumed, corrupt = got[2].cpu(), got[3].cpu()
+    if kind == "truncated":
+        assert (corrupt == 1).all() and (consumed == tokens.shape[0]).all()
+    elif kind == "long":
+        assert not corrupt.any() and (consumed > 1024).all()
+    else:
+        assert corrupt.any() and ((placed[0] & 1).sum(0).cpu()[corrupt == 1] > 0).any()
+    torch.cuda.synchronize()
+    assert dk.launch_counts() == {"fsm": 1, "fsm_place": 1, "rng_expand": 0, "rng": 0}
 
 
 # B = 13 is not a multiple of the RNG kernels' stream tile; at P = 2048
@@ -172,7 +220,7 @@ def test_rng_kernels_match_plain_on_synthetic_flags(dev, b, n_pos):
     assert (tail[:600] != 0).all() and (tail[700:] == 0).all()
     assert (coef < 0).any() and (coef > 0).any()
     torch.cuda.synchronize()
-    assert dk.launch_counts() == {"fsm": 0, "rng_expand": 1, "rng": 1}
+    assert dk.launch_counts() == {"fsm": 0, "fsm_place": 0, "rng_expand": 1, "rng": 1}
 
 
 def test_entry_points_refuse_other_geometry(dev):
@@ -185,7 +233,7 @@ def test_decode_path_on_card_matches_cpu(dev):
     dk.reset_launch_counts()
     pcm, bits, corrupt = batch_decode(streams, t, win, CFG, device=dev)
     torch.cuda.synchronize()
-    assert dk.launch_counts() == {"fsm": t, "rng_expand": t, "rng": 0}
+    assert dk.launch_counts() == {"fsm": 0, "fsm_place": t, "rng_expand": t, "rng": 0}
     pcm_c, bits_c, corrupt_c = batch_decode(streams, t, win, CFG, device="cpu")
     assert torch.equal(bits.cpu(), bits_c) and torch.equal(corrupt.cpu(), corrupt_c)
     assert not corrupt_c.any() and torch.equal((bits_c + 7) // 8 * 8, sizes)

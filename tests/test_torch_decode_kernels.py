@@ -9,7 +9,9 @@ bs256 stereo streams (P = 512), the garbage and mutated windows of
 tests/test_fuzz_decoder.py, a truncated window, a bs1024 window longer
 than the TPU's 1024-token chunk, and synthetic record flags at P = 2048
 with long tail runs (``chip_smoke.synthetic_flags``, which the card
-tests share) and seeds that have bit 31 set.
+tests share) and seeds that have bit 31 set. The FSM kernel's packed
+syntax table is unpacked against the plain version's tables and stepped
+in numpy as the kernel steps it.
 
 The module also builds the windows that tests/test_torch_decode.py uses.
 """
@@ -21,6 +23,7 @@ import pytest
 import torch
 
 import test_fuzz_decoder
+from chip_smoke import all_coef_window as _all_coef_window
 from chip_smoke import synthetic_flags
 from ulcx.bitstream import fast_decode as jfd
 from ulcx.bitstream import pallas_decode as pd
@@ -80,19 +83,10 @@ def fuzz_windows():
 
 
 def all_coef_window(rng, n, w, wc_nybbles):
-    """A window whose every segment is coded coefficient by coefficient:
-    a quantizer nybble, then one coefficient nybble per position. It
-    ends after n_chan * (segments + n) tokens."""
-    from ulcx_torch.ops.patterns import pattern_subblock_sizes
-
-    pat = wc_nybbles[1] if len(wc_nybbles) == 2 else 1
-    ny = list(wc_nybbles)
-    for _ in range(C):
-        for ss in pattern_subblock_sizes(pat, n):
-            ny.append(int(rng.integers(0, 14)))
-            ny.extend(rng.choice([2, 3, 4, 5, 6, 7, 9, 10, 11, 12, 13, 14], ss).tolist())
-    ny = np.array(ny + [0] * (2 * w - len(ny)), np.uint8)
-    return ny[0::2] | (ny[1::2] << 4)
+    """A window whose every segment is coded coefficient by coefficient
+    (``chip_smoke.all_coef_window``, which the card run shares), at this
+    module's channel count."""
+    return _all_coef_window(rng, n, C, w, wc_nybbles)
 
 
 def _lanes(x):
@@ -133,27 +127,33 @@ def test_next_end_table_matches():
         np.testing.assert_array_equal(dk._next_end_table(n), pd._next_end_table(n))
 
 
-@pytest.mark.parametrize("kind", ["real", "fuzz", "truncated", "long"])
-def test_fsm_matches_ulcx(enc, kind):
-    n = N
+KINDS = ["real", "fuzz", "truncated", "long"]
+
+
+def _windows(enc, kind):
+    """(windows [B, W] uint8, block size) of one kind."""
     if kind == "real":
         _, streams, offs, _ = enc
-        windows = block_windows(streams, offs, W)
-    elif kind == "fuzz":
-        windows = fuzz_windows()
-    elif kind == "truncated":
+        return block_windows(streams, offs, W), N
+    if kind == "fuzz":
+        return fuzz_windows(), N
+    if kind == "truncated":
         # 48 bytes hold ~94 tokens, fewer than any block needs
         _, streams, offs, _ = enc
-        windows = block_windows(streams, offs[:, :1], 48)
-    else:
-        # bs1024: 2050 tokens of coefficients, past the TPU's 1024-token
-        # chunk, plus one garbage window
-        n, rng = 1024, np.random.default_rng(7)
-        windows = np.stack([
-            all_coef_window(rng, n, 1100, [0x0]),
-            all_coef_window(rng, n, 1100, [0x8, 0x3]),
-            rng.integers(0, 256, 1100).astype(np.uint8),
-        ])
+        return block_windows(streams, offs[:, :1], 48), N
+    # bs1024: 2050 tokens of coefficients, past the TPU's 1024-token
+    # chunk, plus one garbage window
+    n, rng = 1024, np.random.default_rng(7)
+    return np.stack([
+        all_coef_window(rng, n, 1100, [0x0]),
+        all_coef_window(rng, n, 1100, [0x8, 0x3]),
+        rng.integers(0, 256, 1100).astype(np.uint8),
+    ]), n
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_fsm_matches_ulcx(enc, kind):
+    windows, n = _windows(enc, kind)
     want, got = ulcx_fsm(windows, n)
     for name, w, g in zip(("rec", "code", "consumed", "corrupt"), want, got):
         assert g.dtype == torch.int32
@@ -169,6 +169,121 @@ def test_fsm_matches_ulcx(enc, kind):
         assert list(corrupt[:2]) == [0, 0] and (want[2][:2] > 1024).all()
     else:
         assert 0 < corrupt.sum() < len(corrupt)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_fsm_place_matches_ulcx(enc, kind):
+    """The placing mode's plain version against ulcx's two steps: its FSM
+    kernel, then its record placement."""
+    windows, n = _windows(enc, kind)
+    (rec, code, consumed, corrupt), _ = ulcx_fsm(windows, n)
+    want = np.asarray(jfd.records_to_flags(jnp.asarray(rec), jnp.asarray(code), C * n))
+    wc, _, tokens = _header_and_tokens(torch.from_numpy(windows))
+    flags, g_consumed, g_corrupt = dk.fsm_place_plain(wc, tokens, C * n, n)
+    assert flags.dtype == torch.int32 and tuple(flags.shape) == (C * n, windows.shape[0])
+    np.testing.assert_array_equal(flags.numpy().T, want)
+    np.testing.assert_array_equal(g_consumed.numpy(), consumed)
+    np.testing.assert_array_equal(g_corrupt.numpy(), corrupt)
+    assert (want & 1).any()
+    # the wrapper takes the plain version on CPU tensors and counts no launch
+    dk.reset_launch_counts()
+    for g, w in zip(dk.fsm_place(wc, tokens, C * n, n), (flags, g_consumed, g_corrupt)):
+        assert torch.equal(g, w)
+    assert dk.launch_counts()["fsm_place"] == 0
+
+
+def _unpack(words, name):
+    shift, bits = dk.SYNTAX_FIELDS[name]
+    field = (words.astype(np.int64) >> shift) & ((1 << bits) - 1)
+    return field - 1 if name == "qi" else field
+
+
+def test_syntax_words_unpack_to_tables():
+    """Every field of the kernel's packed (mode, nybble) word is the plain
+    version's table entry, and the fields tile bits 0-30 without overlap."""
+    words, tab = dk._syntax_words(), dk._syntax_tables()
+    assert words.dtype == np.int32 and words.shape == (256,) and (words >= 0).all()
+    assert set(dk.SYNTAX_FIELDS) == set(tab)
+    for name in tab:
+        np.testing.assert_array_equal(_unpack(words, name), tab[name], err_msg=name)
+    used = sorted(dk.SYNTAX_FIELDS.values())
+    assert used[0][0] == 0 and all(s0 + n0 <= s1 for (s0, n0), (s1, _) in zip(used, used[1:]))
+    assert sum(used[-1]) == 31
+    # a bad quantizer token goes straight to CORRUPT; ended modes stay
+    assert _unpack(words, "next")[dk.M_QUANT_START * 16 + 0xF] == dk.M_CORRUPT
+    for m in (dk.M_DONE, dk.M_CORRUPT):
+        assert (words[m * 16:m * 16 + 16] == m).all()
+    # the three run forms and the level, by hand
+    i = dk.M_LRUN_X * 16 + 5
+    assert (_unpack(words, "n0")[i], _unpack(words, "nmul")[i]) == (38, 16)
+    i = dk.M_NOISE_X * 16 + 7
+    assert [_unpack(words, f)[i] for f in ("n0", "nmul", "a0")] == [17, 2, 4]
+    assert _unpack(words, "n0")[dk.M_ZSHORT * 16 + 9] == 10
+    assert _unpack(words, "qi")[dk.M_QUANT_EXT_S * 16 + 3] == 0xE + 3
+
+
+def _step_words(wc, tokens, p_tot, n):
+    """The FSM kernel's walk in numpy, from the packed words alone: one
+    table read a token, selects on its fields, the segment end carried
+    and looked up again only when a record ends its segment; the walker
+    leaves the record word and its registers, from which the code and
+    expansion words are built afterwards, as the kernel's helpers do.
+    Returns (rec, code [T, B], flags [P, B], consumed, corrupt)."""
+    words = dk._syntax_words().astype(np.int64)
+    t_len, b = tokens.shape
+    seg = dk._next_end_table(n)[(wc >> 4) & 15].astype(np.int64)  # [B, 8]
+    shift = int(np.log2(n // 8))
+    lane = np.arange(b)
+    mode, pos, qi, r0, cnt = (np.zeros(b, np.int64) for _ in range(5))
+    se = seg[:, 0].copy()
+    rec, code = np.zeros((t_len, b), np.int64), np.zeros((t_len, b), np.int64)
+    flags = np.zeros((p_tot, b), np.int64)
+    for t in range(t_len):
+        x = tokens[t].astype(np.int64) & 15
+        w = words[mode * 16 + x]
+        cnt += mode < dk.M_DONE
+        kind = (w >> 4) & 7
+        n_run = ((w >> 16) & 63) + r0 * ((w >> 22) & 31)
+        end = np.where(((w >> 15) & 1) == 1, pos + n_run,
+                       np.where(kind == dk.REC_COEF, pos + 1, se))
+        run_bad = end > se
+        emit = (kind != 0) & ~run_bad
+        rec[t] = np.where(emit, pos | (kind << 15), 0)
+        regs = (w & (0xF << 27)) | (x << 16) | (qi << 8) | r0
+        # the helpers' part: code and expansion words from the staged pair
+        kind_h, r0_h, x_h = rec[t] >> 15, regs & 0xFF, (regs >> 16) & 15
+        tail = kind_h == dk.REC_TAIL
+        a = ((regs >> 27) & 15) + np.where(tail, r0_h >> 4, 0)
+        dn = np.where(tail, ((r0_h & 0xF) << 4) | x_h, 0)
+        code[t] = np.where(kind_h != 0, a | (dn << 5) | (((regs >> 8) & 31) << 13), 0)
+        flags[(rec[t] & 0x7FFF)[emit], lane[emit]] = (
+            ((0xB3150 >> (kind_h * 4)) & 0xF) | (code[t] << 4))[emit]
+        nxt = np.where(kind != 0, np.where(end >= p_tot, dk.M_DONE,
+                                           np.where(end == se, dk.M_QUANT_START, dk.M_NORMAL)),
+                       w & 15)
+        nxt = np.where(run_bad, dk.M_CORRUPT, nxt)
+        load = (w >> 13) & 3
+        r0 = np.where(load == 1, x, np.where(load == 2, ((r0 << 4) | x) & 0xFF, r0))
+        q = (w >> 8) & 31
+        qi = np.where(q != 0, q - 1, qi)
+        pos = np.where(emit, end, pos)
+        fresh = (pos & ~(n - 1)) + seg[lane, (pos & (n - 1)) >> shift]
+        se = np.where(emit & (end == se), fresh, se)
+        mode = nxt
+    return rec, code, flags, cnt, (mode != dk.M_DONE).astype(np.int64)
+
+
+@pytest.mark.parametrize("kind", ["fuzz", "long"])
+def test_stepping_the_syntax_words_reproduces_fsm_plain(enc, kind):
+    windows, n = _windows(enc, kind)
+    wc, _, tokens = _header_and_tokens(torch.from_numpy(windows))
+    want = dk.fsm_plain(wc, tokens, C * n, n)
+    want_flags = dk.place_records(want[0], want[1], C * n)
+    rec, code, flags, consumed, corrupt = _step_words(wc.numpy(), tokens.numpy(), C * n, n)
+    for name, w, g in zip(("rec", "code", "consumed", "corrupt", "flags"),
+                          (*want, want_flags), (rec, code, consumed, corrupt, flags)):
+        np.testing.assert_array_equal(g, w.numpy(), err_msg=name)
+    assert corrupt.any() and not corrupt.all()
 
 
 def _seeds(rng, b):
@@ -276,3 +391,43 @@ def test_rng_smem_matches_layout():
     assert dk.rng_smem_bytes(False, 3, 13) == 2 * 3 * 160  # 39 words round up to 160 bytes
     with pytest.raises(ValueError):
         dk.rng_geometry(4096, 512, streams=33)
+
+
+@pytest.mark.parametrize("b", [1, 13, 128, 512, 2048])
+@pytest.mark.parametrize("t_len", [94, 1662, 2198])
+def test_fsm_geometry_covers_once(b, t_len):
+    """The FSM kernel's launch geometry (one for both modes), at the default and
+    at every stream count the sweep tries: shared memory within Hopper's
+    per-block limit, and every (token chunk, stream) served once, the
+    chunks in order; 94 and 2198 tokens are no multiple of the chunk."""
+    for streams in sorted({dk.FSM_STREAMS, 4, 8, 16, 32}):
+        for helper_warps in (1, 3, 7):
+            g = dk.fsm_geometry(t_len, b, streams, helper_warps)
+            assert g["smem"] <= ek.SMEM_LIMIT and g["stages"] == 2
+            assert g["threads"] == 32 * (1 + helper_warps)
+            assert g["smem"] == dk.fsm_smem_bytes(g["chunk"], streams)
+            tiles = dk.rng_tiles(b, g["streams"])
+            chunks = ek.walk_chunks(t_len, g["chunk"], False)
+            assert g["grid"] == len(tiles) and chunks == sorted(chunks)
+            seen = np.zeros((t_len, b), np.int64)
+            for b0, ns in tiles:
+                assert 1 <= ns <= streams and b0 % streams == 0
+                for lo, hi in chunks:
+                    assert 0 < hi - lo <= g["chunk"]
+                    seen[lo:hi, b0:b0 + ns] += 1
+            assert (seen == 1).all()
+
+
+def test_fsm_smem_matches_layout():
+    """The byte count the FSM entry points check, by hand: 256 syntax
+    words and 128 next ends, then two stages of 128 tokens x 8 streams x
+    4 bytes for the token, the record word and the walker's registers."""
+    assert dk.fsm_smem_bytes(128, 8) == 1024 + 512 + 2 * 3 * 128 * 8 * 4
+    assert dk.fsm_smem_bytes(3, 13) == 1536 + 2 * 3 * 160  # 39 words round up to 160 bytes
+    assert dk.fsm_geometry(1662, 512)["smem"] == dk.fsm_smem_bytes(dk.FSM_CHUNK, dk.FSM_STREAMS)
+    assert dk._fsm_geometry_ints(1662, 512) == (8, 128, 128, dk.fsm_smem_bytes(128, 8))
+    for bad in (0, 33):
+        with pytest.raises(ValueError):
+            dk.fsm_geometry(1662, 512, streams=bad)
+    with pytest.raises(ValueError):
+        dk.fsm_geometry(1662, 0)

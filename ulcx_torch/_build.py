@@ -42,7 +42,8 @@ _SIGNATURES = {
     "ulcx_p2": (7, 5),
     "ulcx_p3_size": (4, 5),
     "ulcx_p3_materialize": (11, 6),
-    "ulcx_fsm": (7, 4),
+    "ulcx_fsm": (8, 8),
+    "ulcx_fsm_place": (7, 8),
     "ulcx_rng_expand": (4, 6),
     "ulcx_rng": (4, 6),
 }

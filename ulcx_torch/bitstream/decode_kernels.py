@@ -1,12 +1,18 @@
-"""The three decode kernels: CUDA kernels and their plain versions.
+"""The decode kernels: CUDA kernels and their plain versions.
 
-Port of ``ulcx.bitstream.pallas_decode``. Each kernel has
+Port of ``ulcx.bitstream.pallas_decode``, and of the record placement
+that ``ulcx.bitstream.fast_decode`` does outside its kernels. The state
+machine has two modes: ``fsm`` writes the record and code planes (what
+ulcx's ``_fsm_kernel`` computes), ``fsm_place`` writes each record's
+expansion word at its start position instead (the machine fused with
+``records_to_flags``), which is what ``fast_decode.decode_block_fast``
+runs. Each kernel has
 
-- a wrapper (``fsm``, ``rng_expand``, ``rng``): on a CPU tensor it runs
-  the plain version; on a CUDA tensor it launches its kernel from
-  ``csrc/decode_walks.cu`` or raises. It checks device, dtype, shape and
-  contiguity, allocates the outputs, launches on the current stream,
-  and adds one to its ``launches`` counter;
+- a wrapper (``fsm``, ``fsm_place``, ``rng_expand``, ``rng``): on a CPU
+  tensor it runs the plain version; on a CUDA tensor it launches its
+  kernel from ``csrc/decode_walks.cu`` or raises. It checks device,
+  dtype, shape and contiguity, allocates the outputs, launches on the
+  current stream, and adds one to its ``launches`` counter;
 - a plain PyTorch version (``*_plain``) with the same signature: a
   Python loop over tokens or positions, vectorized over streams. It is
   the CPU path and the kernels' oracle on the card.
@@ -22,6 +28,12 @@ Field maps (P <= 32768):
   flags       (expansion) start bit 0 | draw record 1 | coded coefficient 2 |
               tail 3 | code << 4, set at record starts only
   rng flags   draw bit 0 | start bit 1, the draw bit filled forward
+  syntax word see ``_syntax_words``
+
+CPU tests of this module and of the decode path (from the repo root):
+    JAX_PLATFORMS=cpu python -m pytest tests/test_torch_decode_kernels.py tests/test_torch_decode.py -q
+On a card, ``python3 chip_smoke.py`` builds the kernels and holds each
+against its plain version.
 """
 
 from __future__ import annotations
@@ -70,6 +82,12 @@ MAX_P = 32768  # rec holds a record start in 15 bits
 RNG_STREAMS = 8
 RNG_CHUNK = 128
 RNG_HELPER_WARPS = 3
+# The FSM kernel's: the same CTA over chunks of FSM_CHUNK tokens; the
+# helpers build the code words from what the walker staged and store
+# them (in the placing mode, scatter the expansion words).
+FSM_STREAMS = 8
+FSM_CHUNK = 128
+FSM_HELPER_WARPS = 3
 SEED = 1234567  # the reference's global noise seed (ulcDecoder.c:75-81)
 _I32 = torch.int32
 _M32 = 0xFFFFFFFF
@@ -161,23 +179,61 @@ def _rng_geometry_ints(n_pos: int, b: int, expand: bool) -> tuple:
     return g["streams"], g["chunk"], g["threads"], g["smem"]
 
 
+def fsm_smem_bytes(chunk: int, streams: int) -> int:
+    """Dynamic shared memory of one FSM CTA: ``fsm_layout`` in
+    csrc/decode_walks.cu, which the entry points check against this
+    number. The 256 syntax words and the 16 x 8 next-end table, then
+    STAGES stages that hold, per (token, stream), the token, the record
+    word and the walker's registers."""
+    return _arr(256) + _arr(128) + STAGES * 3 * _arr(chunk * streams)
+
+
+def fsm_geometry(t_len: int, b: int, streams: int = FSM_STREAMS,
+                 helper_warps: int = FSM_HELPER_WARPS) -> dict:
+    """Launch geometry of the FSM kernel at T = t_len tokens, B = b:
+    streams per CTA, chunk length, ring stages, threads and
+    shared-memory bytes per CTA, and the grid (CTAs ``rng_tiles(b,
+    streams)``, each walking the chunks ``encode_kernels.walk_chunks(
+    t_len, FSM_CHUNK, False)`` until every one of its blocks has ended).
+    The record mode and the placing mode share it: they differ in what
+    the helpers store."""
+    if t_len < 0 or b < 1:
+        raise ValueError(f"empty walk: T={t_len}, B={b}")
+    if not 1 <= streams <= 32:
+        raise ValueError(f"{streams} streams: a CTA walks 1 to 32, one lane of warp 0 each")
+    return {
+        "streams": streams, "chunk": FSM_CHUNK, "stages": STAGES,
+        "threads": 32 * (1 + helper_warps), "smem": fsm_smem_bytes(FSM_CHUNK, streams),
+        "grid": -(-b // streams),
+    }
+
+
+def _fsm_geometry_ints(t_len: int, b: int) -> tuple:
+    g = fsm_geometry(t_len, b)
+    return g["streams"], g["chunk"], g["threads"], g["smem"]
+
+
 # --- plain versions ---------------------------------------------------------
 
 
 @lru_cache(maxsize=1)
 def _syntax_tables() -> dict:
     """The token syntax as [16 modes, 16 nybbles] tables: the next mode
-    when the token ends no record (``next``), the record it ends
-    (``kind``; a run's record is taken back if the run overflows its
-    segment), a bad token (``bad``), the quantizer it sets (``qi``, -1
-    to keep), how it loads the run register (``r0``: 1 = x, 2 =
-    r0 << 4 | x), and whether it is a run length (``run``)."""
+    when the token ends no record (``next``, CORRUPT for a bad token),
+    the record it ends (``kind``; a run's record is taken back if the
+    run overflows its segment), the quantizer it sets (``qi``, -1 to
+    keep), how it loads the run register (``r0``: 1 = x, 2 =
+    r0 << 4 | x), and whether it is a run length (``run``). A run is
+    ``n0 + r0 * nmul`` positions long (the three run forms: x + 1,
+    (r0 << 4 | x) + 33, (r0 << 1 | x & 1) + 16), and a record's level a
+    is ``a0``, plus r0 >> 4 in a tail record."""
     x = np.arange(16)
-    t = {k: np.zeros((16, 16), np.int64) for k in ("next", "kind", "bad", "r0", "run")}
+    t = {k: np.zeros((16, 16), np.int64)
+         for k in ("next", "kind", "r0", "run", "n0", "nmul", "a0")}
     t["qi"] = np.full((16, 16), -1, np.int64)
     t["next"][:] = np.arange(16)[:, None]  # DONE and CORRUPT stay
-    t["next"][M_QUANT_START] = np.where(x == 0xE, M_QUANT_EXT_S, M_NORMAL)
-    t["bad"][M_QUANT_START] = x == 0xF
+    t["next"][M_QUANT_START] = np.where(
+        x == 0xF, M_CORRUPT, np.where(x == 0xE, M_QUANT_EXT_S, M_NORMAL))
     t["qi"][M_QUANT_START] = np.where(x < 0xE, x, -1)
     for m in (M_QUANT_EXT_S, M_QUANT_EXT_M):
         t["next"][m] = M_NORMAL
@@ -193,10 +249,40 @@ def _syntax_tables() -> dict:
         t["kind"][m] = kind
         t["run"][m] = 1
     t["kind"][M_TAIL_X] = REC_TAIL
+    t["n0"][M_ZSHORT] = x + 1
+    t["n0"][M_LRUN_X], t["nmul"][M_LRUN_X] = x + 33, 16
+    t["n0"][M_NOISE_X], t["nmul"][M_NOISE_X] = (x & 1) + 16, 2
+    t["a0"][M_NORMAL] = np.where(t["kind"][M_NORMAL] == REC_COEF, x, 0)
+    t["a0"][M_NOISE_X] = (x >> 1) + 1
+    t["a0"][M_TAIL_X] = 1
     for m in (M_LRUN_Y, M_NOISE_Z, M_NOISE_Y, M_TAIL_Z, M_TAIL_Y):
         t["next"][m] = m + 1
         t["r0"][m] = 2 if m in (M_NOISE_Y, M_TAIL_Y) else 1
     return {k: v.reshape(-1) for k, v in t.items()}
+
+
+# field -> (shift, bits) of the kernel's packed syntax word; qi is held
+# as qi + 1, 0 to keep
+SYNTAX_FIELDS = {"next": (0, 4), "kind": (4, 3), "qi": (8, 5), "r0": (13, 2), "run": (15, 1),
+                 "n0": (16, 6), "nmul": (22, 5), "a0": (27, 4)}
+
+
+def _syntax_words() -> np.ndarray:
+    """``_syntax_tables`` as the [256] int32 table the FSM kernel steps
+    through: one word per (mode, nybble), fields at ``SYNTAX_FIELDS``."""
+    tab = _syntax_tables()
+    words = np.zeros(256, np.int64)
+    for name, (shift, bits) in SYNTAX_FIELDS.items():
+        field = tab[name] + 1 if name == "qi" else tab[name]
+        if field.min() < 0 or field.max() >= 1 << bits:
+            raise ValueError(f"syntax field {name} does not fit {bits} bits")
+        words |= field << shift
+    return words.astype(np.int32)
+
+
+@lru_cache(maxsize=16)
+def _syntax_tensor(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_syntax_words()).to(device)
 
 
 def fsm_plain(wc, tokens, p_tot: int, n: int):
@@ -229,17 +315,15 @@ def fsm_plain(wc, tokens, p_tot: int, n: int):
         idx = mode * 16 + x
         se = (pos & ~(n - 1)) + nse.gather(1, ((pos & (n - 1)) >> slot_shift)[:, None])[:, 0]
         is_run = tab["run"][idx] == 1
-        n_run = torch.where(mode == M_ZSHORT, x + 1,
-                            torch.where(mode == M_LRUN_X, ((r0 << 4) | x) + 33, ((r0 << 1) | (x & 1)) + 16))
+        n_run = tab["n0"][idx] + r0 * tab["nmul"][idx]
         run_bad = is_run & (n_run > se - pos)
         kind = torch.where(run_bad, REC_NONE, tab["kind"][idx])
         end = torch.where(is_run, pos + n_run, torch.where(kind == REC_COEF, pos + 1, se))
         seg_adv = torch.where(end >= p_tot, M_DONE, torch.where(end == se, M_QUANT_START, M_NORMAL))
         emit = kind != REC_NONE
         new_m = torch.where(emit, seg_adv, tab["next"][idx])
-        new_m = torch.where((tab["bad"][idx] == 1) | run_bad, M_CORRUPT, new_m)
-        a = torch.where(kind == REC_COEF, x, torch.where(kind == REC_NOISE, (x >> 1) + 1, (r0 >> 4) + 1))
-        a = torch.where(kind == REC_ZERO, 0, a)
+        new_m = torch.where(run_bad, M_CORRUPT, new_m)
+        a = tab["a0"][idx] + torch.where(kind == REC_TAIL, r0 >> 4, 0)
         dn = torch.where(kind == REC_TAIL, ((r0 & 0xF) << 4) | x, 0)
         emit = emit & active
         rec[t] = torch.where(emit, torch.clamp(pos, max=0x7FFF) | (kind << 15), 0).to(_I32)
@@ -253,6 +337,39 @@ def fsm_plain(wc, tokens, p_tot: int, n: int):
         qi = torch.where(active & (new_qi >= 0), new_qi, qi)
         r0 = torch.where(active, new_r0, r0)
     return rec, code, consumed.to(_I32), (mode != M_DONE).to(_I32)
+
+
+def place_records(rec: torch.Tensor, code: torch.Tensor, p_tot: int) -> torch.Tensor:
+    """Records [T, B] -> expansion flags [P, B] i32: each record's packed
+    word (start | draw << 1 | coded << 2 | tail << 3 | code << 4) at its
+    start position, 0 elsewhere. One scatter into a zeroed plane: starts
+    strictly increase within a stream, so no two records share a
+    position."""
+    b = rec.shape[1]
+    rtype = (rec >> 15) & 0x7
+    emit = rtype != REC_NONE
+    draw = (rtype == REC_NOISE) | (rtype == REC_TAIL)
+    meta = torch.where(
+        emit,
+        1 | (draw.to(_I32) << 1) | ((rtype == REC_COEF).to(_I32) << 2)
+        | ((rtype == REC_TAIL).to(_I32) << 3) | (code << 4),
+        0,
+    ).to(_I32)
+    # tokens without a record write 0 into a drop row at P
+    row = torch.where(emit, rec & 0x7FFF, p_tot).long()
+    flat = torch.zeros(((p_tot + 1) * b,), dtype=_I32, device=rec.device)
+    col = torch.arange(b, device=rec.device)
+    flat.scatter_(0, (row * b + col).reshape(-1), meta.reshape(-1))
+    return flat[: p_tot * b].reshape(p_tot, b)
+
+
+def fsm_place_plain(wc, tokens, p_tot: int, n: int):
+    """The state machine fused with the record placement: ``fsm_plain``,
+    then ``place_records``. Returns (flags [P, B], consumed [B],
+    corrupt [B]), all i32. A stream that turns corrupt keeps the records
+    it emitted before."""
+    rec, code, consumed, corrupt = fsm_plain(wc, tokens, p_tot, n)
+    return place_records(rec, code, p_tot), consumed, corrupt
 
 
 def _levels(flags: torch.Tensor):
@@ -326,6 +443,20 @@ def rng_plain(flags, seed):
 # --- wrappers ---------------------------------------------------------------
 
 
+def _fsm_args(wc, tokens, p_tot: int, n: int):
+    """Check the FSM kernel's inputs; returns (T, B, the kernel's input
+    tensors, consumed, corrupt)."""
+    t_len, b = tokens.shape
+    _check("wc", wc, _I32, (b,))
+    _check("tokens", tokens, _I32, (t_len, b))
+    if n < 8 or n & (n - 1) or p_tot < 1:
+        raise ValueError(f"block size {n} (a power of two from 8), P = {p_tot}")
+    dev = tokens.device
+    ins = (wc, tokens, _next_end_tensor(n, dev), _syntax_tensor(dev))
+    return (t_len, b, ins, torch.empty((b,), dtype=_I32, device=dev),
+            torch.empty((b,), dtype=_I32, device=dev))
+
+
 def fsm(wc, tokens, p_tot: int, n: int):
     """Nybble-syntax state machine (replaces pallas_decode._fsm_kernel)
     -> (rec, code, consumed, corrupt); see ``fsm_plain``."""
@@ -333,19 +464,32 @@ def fsm(wc, tokens, p_tot: int, n: int):
         raise NotImplementedError(f"P = {p_tot} > {MAX_P} is not ported: ROADMAP A.9")
     if _on_cpu(wc, tokens):
         return fsm_plain(wc, tokens, p_tot, n)
-    t_len, b = tokens.shape
-    _check("wc", wc, _I32, (b,))
-    _check("tokens", tokens, _I32, (t_len, b))
-    dev = tokens.device
+    t_len, b, ins, consumed, corrupt = _fsm_args(wc, tokens, p_tot, n)
     # the kernel stops at the end of the block: tokens after it stay 0
-    rec = torch.zeros((t_len, b), dtype=_I32, device=dev)
-    code = torch.zeros((t_len, b), dtype=_I32, device=dev)
-    consumed = torch.empty((b,), dtype=_I32, device=dev)
-    corrupt = torch.empty((b,), dtype=_I32, device=dev)
-    _launch("ulcx_fsm", (wc, tokens, _next_end_tensor(n, dev), rec, code, consumed, corrupt),
-            (b, t_len, p_tot, n), dev)
+    rec = torch.zeros((t_len, b), dtype=_I32, device=tokens.device)
+    code = torch.zeros((t_len, b), dtype=_I32, device=tokens.device)
+    _launch("ulcx_fsm", (*ins, rec, code, consumed, corrupt),
+            (b, t_len, p_tot, n, *_fsm_geometry_ints(t_len, b)), tokens.device)
     fsm.launches += 1
     return rec, code, consumed, corrupt
+
+
+def fsm_place(wc, tokens, p_tot: int, n: int):
+    """The state machine fused with the record placement (replaces
+    pallas_decode._fsm_kernel together with fast_decode's
+    records_to_flags) -> (flags [P, B], consumed, corrupt); see
+    ``fsm_place_plain``."""
+    if p_tot > MAX_P:
+        raise NotImplementedError(f"P = {p_tot} > {MAX_P} is not ported: ROADMAP A.9")
+    if _on_cpu(wc, tokens):
+        return fsm_place_plain(wc, tokens, p_tot, n)
+    t_len, b, ins, consumed, corrupt = _fsm_args(wc, tokens, p_tot, n)
+    # the kernel writes at record starts only
+    flags = torch.zeros((p_tot, b), dtype=_I32, device=tokens.device)
+    _launch("ulcx_fsm_place", (*ins, flags, consumed, corrupt),
+            (b, t_len, p_tot, n, *_fsm_geometry_ints(t_len, b)), tokens.device)
+    fsm_place.launches += 1
+    return flags, consumed, corrupt
 
 
 def _rng_args(flags, seed):
@@ -382,7 +526,7 @@ def rng(flags, seed):
     return sign, seed_out
 
 
-KERNELS = (fsm, rng_expand, rng)
+KERNELS = (fsm, fsm_place, rng_expand, rng)
 for _fn in KERNELS:
     _fn.launches = 0
 

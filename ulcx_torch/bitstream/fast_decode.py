@@ -1,15 +1,28 @@
 """Kernel-backed batched block decode (port of ``ulcx.bitstream.fast_decode``).
 
 Per block, for a batch of streams:
-  byte windows -> nybbles -> [FSM kernel] records -> scatter at record
-  starts -> [RNG-expand kernel] coefficients.
+  byte windows -> nybbles -> [FSM kernel, placing mode] expansion flags
+  at record starts -> [RNG-expand kernel] coefficients.
+
+``decode_block_fast`` runs the state machine in its placing mode
+(``decode_kernels.fsm_place``): the kernel writes each record's
+expansion word at its start position, so no record plane and no scatter
+pass between the two kernels. ulcx keeps that placement outside its
+kernel as a one-hot matmul (a Mosaic kernel cannot scatter); here it is
+part of the walk. ``fsm_records`` and ``records_to_flags`` are ulcx's
+two-step API: the kernel's record mode (``decode_kernels.fsm``), and
+the placement as one scatter into a zeroed plane
+(``decode_kernels.place_records``, also the placing mode's plain
+version).
 
 The public functions keep ulcx's signatures and [B, ...] layouts; the
 kernels read and write token- and position-major planes ([T, B],
 [P, B]), which ``decode_block_fast`` passes from one to the next
-without a transpose. The record placement is one scatter into a zeroed
-plane (starts strictly increase within a stream, so no two records
-share a position); ulcx's one-hot matmul placement has no counterpart.
+without a transpose.
+
+CPU tests (from the repo root):
+    JAX_PLATFORMS=cpu python -m pytest tests/test_torch_decode_kernels.py tests/test_torch_decode.py -q
+On a card: ``python3 chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -42,47 +55,18 @@ def _header_and_tokens(windows: torch.Tensor):
     return wc, hdr, tokens
 
 
-def _fsm_planes(windows: torch.Tensor, cfg: CodecConfig):
-    """The FSM on token planes: (rec [T, B], code [T, B], wc, hdr,
-    consumed, corrupt)."""
-    wc, hdr, tokens = _header_and_tokens(windows)
-    rec, code, consumed, corrupt = dk.fsm(wc, tokens, cfg.block_size * cfg.n_chan, cfg.block_size)
-    return rec, code, wc, hdr, consumed, corrupt
-
-
 def fsm_records(windows: torch.Tensor, cfg: CodecConfig):
     """FSM pass only: windows [B, W] uint8 at block starts ->
     (rec [B, R], code [B, R], wc [B], hdr [B], consumed [B],
     corrupt [B]), all i32, R = 2W - 2."""
-    rec, code, wc, hdr, consumed, corrupt = _fsm_planes(windows, cfg)
+    wc, hdr, tokens = _header_and_tokens(windows)
+    rec, code, consumed, corrupt = dk.fsm(wc, tokens, cfg.block_size * cfg.n_chan, cfg.block_size)
     return rec.T.contiguous(), code.T.contiguous(), wc, hdr, consumed, corrupt
-
-
-def _place(rec: torch.Tensor, code: torch.Tensor, p_tot: int) -> torch.Tensor:
-    """Records [T, B] -> expansion flags [P, B] i32: each record's packed
-    word (start | draw << 1 | coded << 2 | tail << 3 | code << 4) at its
-    start position, 0 elsewhere."""
-    t_len, b = rec.shape
-    rtype = (rec >> 15) & 0x7
-    emit = rtype != dk.REC_NONE
-    draw = (rtype == dk.REC_NOISE) | (rtype == dk.REC_TAIL)
-    meta = torch.where(
-        emit,
-        1 | (draw.to(_I32) << 1) | ((rtype == dk.REC_COEF).to(_I32) << 2)
-        | ((rtype == dk.REC_TAIL).to(_I32) << 3) | (code << 4),
-        0,
-    ).to(_I32)
-    # tokens without a record write 0 into a drop row at P
-    row = torch.where(emit, rec & 0x7FFF, p_tot).long()
-    flat = torch.zeros(((p_tot + 1) * b,), dtype=_I32, device=rec.device)
-    col = torch.arange(b, device=rec.device)
-    flat.scatter_(0, (row * b + col).reshape(-1), meta.reshape(-1))
-    return flat[: p_tot * b].reshape(p_tot, b)
 
 
 def records_to_flags(rec: torch.Tensor, code: torch.Tensor, p_tot: int) -> torch.Tensor:
     """rec, code [B, R] from ``fsm_records`` -> flags [B, p_tot] i32."""
-    return _place(rec.T, code.T, p_tot).T.contiguous()
+    return dk.place_records(rec.T, code.T, p_tot).T.contiguous()
 
 
 def expand_coefs(flags: torch.Tensor, rng_state: torch.Tensor, p_tot: int):
@@ -101,8 +85,9 @@ def decode_block_fast(windows: torch.Tensor, rng_state: torch.Tensor, cfg: Codec
     corrupt [B] bool, new rng state [B]); a corrupt block's
     coefficients are 0."""
     n, c = cfg.block_size, cfg.n_chan
-    rec, code, wc, hdr, consumed, corrupt = _fsm_planes(windows, cfg)
-    coef, new_seed = dk.rng_expand(_place(rec, code, n * c), rng_state)
+    wc, hdr, tokens = _header_and_tokens(windows)
+    flags, consumed, corrupt = dk.fsm_place(wc, tokens, n * c, n)
+    coef, new_seed = dk.rng_expand(flags, rng_state)
     bad = corrupt == 1
     coefs = torch.where(bad[None], 0.0, coef).T.contiguous().reshape(-1, c, n)
     return coefs, wc, 4 * (hdr + consumed), bad, new_seed
