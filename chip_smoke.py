@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's batched encode and decode paths on one CUDA card.
+"""Drive the PyTorch port's encode and decode paths on one CUDA card.
 
     python3 chip_smoke.py        # from the repo root; one CUDA GPU, nvcc on the machine
 
@@ -13,9 +13,9 @@ Phases, each of which raises on failure:
    that takes a launch geometry refuses one whose shared-memory bytes
    differ from its Python mirror's;
 3. kernels vs plain: one block step's walk planes at the flagship shape
-   (stereo bs2048, P=4096, from ``bench.make_corpus``), at B=128 and at
-   the main path's B=512, go through each kernel and its plain PyTorch
-   version on the card; every output must be identical, and both are
+   (stereo bs2048, P=4096, from ``bench.make_corpus``), at the main
+   path's B=512, go through each kernel and its plain PyTorch version on
+   the card; every output must be identical, and both are
    timed; then every kernel again at a ragged shape (B=13 streams, not a
    multiple of the walks' stream tile, 3 channels x bs256, P=768),
    identical too, p3 materialize also into a 6-word buffer;
@@ -26,7 +26,7 @@ Phases, each of which raises on failure:
    walks); window control and coded counts exact, total size within 1 %;
 6. decode kernels vs plain: phase 4's bytes packed into streams as
    bench.py packs them, windows of the first and of a later block at the
-   bench's window size, at B=128, B=512 and a ragged B=13 (not a
+   bench's window size, at B=512 and a ragged B=13 (not a
    multiple of the decode kernels' stream tile); each decode kernel's
    outputs identical to its plain version's (coefficients as bits), both
    timed, the flags that feed the RNG kernels being the placing FSM's;
@@ -44,7 +44,40 @@ Phases, each of which raises on failure:
    0) for (fsm, fsm_place, rng_expand, rng), a second run bit-identical;
    prints the decode realtime factor and the round-trip SNR;
 8. decode CUDA vs CPU: the first 8 streams, 2 blocks, on the CPU port;
-   bits and corrupt exact, PCM within 1e-5 RMS.
+   bits and corrupt exact, PCM within 1e-5 RMS;
+9. transforms on the card: the ``fact`` and ``fft`` backends of
+   ``ops.dct`` against the dense ``matmul`` backend at N=4096 and 8192
+   (``dct4``, ``dst4`` and the fused pair, random [64, N] input), each
+   within 1e-5 of the block's largest magnitude; the three backends are
+   timed at [1024, N];
+10. large blocks, stereo bs4096 (P=8192, the N=4096 subblock on the
+    ``fact`` backend): the four encode and the four decode kernels
+    against their plain versions at the B=256 of the path that follows,
+    then ``batch_encode`` CBR-128 and ``batch_decode`` of its bytes at
+    B=256, T=4 with the checks of phases 4 and 7;
+11. folded encode at phase 4's shape: ``fold_bitstream=8`` must give
+    phase 4's bytes and sizes with the walks launched (3, 3, 2, 1) x
+    T/8 times; ``flat_stream=True`` phase 4's window control with
+    (3, 3, 2, 1) launches in all. Its transform products run at B*T rows,
+    where the card's GEMM sums in another order than at B rows, so
+    near-ties of the importance order fall otherwise
+    (``devtools/torch_flat_nearties.py`` shows them) and bytes and sizes
+    differ in part of the blocks: every block must stay within its
+    budget and within 64 bits of phase 4's size, the coded counts of the
+    two analyses may differ in at most 0.5 % of the blocks, the total
+    size stays within 0.1 % of phase 4's, and the bytes must decode
+    without a corrupt block to a round-trip SNR within 0.3 dB of phase
+    7's; the blocks with identical sizes and bytes are counted. Prints
+    each one's realtime factor and peak memory;
+12. single stream: ``encode_stream`` of one stream's 64 blocks (stereo
+    bs2048, CBR-128): bytes identical to two calls of 32 blocks with the
+    carry passed on and to ``batch_encode`` of the stream as a batch of
+    one, the walks launched (3, 3, 2, 1) times in all; ``decode_stream``
+    of the packed bytes in one call, launching T x (0, 1, 1, 0), and in
+    two calls chained through ``(offset, carry)``: identical bits,
+    corrupt flags and PCM, no corrupt block; the first 4 blocks through
+    both entry points on the CPU (the plain walks at these batch sizes)
+    with the tolerances of phases 5 and 8; prints both realtime factors.
 
 The second-to-last line is a JSON object with each kernel's launches on
 its main path, its largest difference from the plain version, both
@@ -69,7 +102,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 BS = 2048
 RATE_KBPS = 128.0
 CBR_BUDGET = 5944  # bits per block: CBR 128 kbps at bs2048, 44.1 kHz
-KERNEL_B = 128
 MAIN_B, MAIN_T = 512, 8
 CPU_B, CPU_T = 8, 2
 WARMUP_LAUNCHES, TIMED_LAUNCHES = 10, 50  # warm-up lets the clocks ramp after the plain run
@@ -77,6 +109,13 @@ HOLD_CYCLES = 200_000_000  # ~0.1 s of device sleep ahead of a timed run of laun
 WARM_RUNS = 3
 DEC_CPU_B, DEC_CPU_T = 8, 2
 LATER_BLOCK = 5  # phase 6's second window
+DCT_SIZES, DCT_ROWS, DCT_TIMED_ROWS, DCT_TOL = (4096, 8192), 64, 1024, 1e-5
+BIG_BS, BIG_B, BIG_T = 4096, 256, 4  # phase 10: stereo bs4096, P=8192
+FOLD = 8  # phase 11: all of MAIN_T in one chunk
+FLAT_SIZE_REL, FLAT_SNR_DB = 1e-3, 0.3  # phase 11: flat_stream against the block loop
+FLAT_BLOCK_BITS, FLAT_N_NZ_SHARE = 64, 0.005  # largest difference of a block, coded counts
+ONE_CPU_T = 4  # phase 12: blocks that also go through the CPU port
+ONE_T = 64  # phase 12: blocks of the single stream
 PCM_RMS = 1e-5  # card vs CPU: float32 matrix products sum in another order
 MIN_SNR_DB = 12.0  # the corpus round-trips at ~16.5 dB at CBR-128; far below means broken
 SOURCE = "ulcx_torch/csrc/encode_walks.cu"
@@ -251,9 +290,11 @@ def check_encoded(sizes, data, b, t, cfg, label):
         raise AssertionError(f"{label}: bytes set past a block's size")
 
 
-def main_path(cfg, x, device):
-    """Phase 4: returns (launch counts, warm seconds of each repeat,
-    seconds of audio)."""
+def main_path(cfg, x, device, stage_runs=None):
+    """Phase 4 (and 10, 11): returns (launch counts, warm seconds of
+    each repeat, seconds of audio, the encoded blocks). ``stage_runs``
+    is how often the bitstream stages run: once a block unless
+    ``cfg`` folds them."""
     import torch
 
     from ulcx_torch.bitstream import encode_kernels as ek
@@ -267,12 +308,13 @@ def main_path(cfg, x, device):
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     counts = ek.launch_counts()
-    want = {k: t * v for k, v in PER_BLOCK.items()}
+    want = {k: (t if stage_runs is None else stage_runs) * v for k, v in PER_BLOCK.items()}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     check_encoded(out.size_bits, out.data, b, t, cfg, "main path")
 
     warm = []
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(WARM_RUNS):
         t0 = time.perf_counter()
         again, _ = batch_encode(blocks, cfg, "cbr", rate_kbps=RATE_KBPS)
@@ -281,7 +323,8 @@ def main_path(cfg, x, device):
         if not (torch.equal(out.data, again.data) and torch.equal(out.size_bits, again.size_bits)):
             raise AssertionError("a second run gave other bytes")
     print(f"encode B={b} T={t}: cold {cold:.3f} s, warm {', '.join(f'{w:.3f}' for w in warm)} s, "
-          f"total {int(stats['total_bits'])} bits", flush=True)
+          f"total {int(stats['total_bits'])} bits, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return counts, warm, b * t * cfg.block_size / cfg.rate_hz, out
 
 
@@ -371,10 +414,10 @@ def stream_seeds(b, seed):
     return torch.from_numpy(s.view(np.int32))
 
 
-def decode_kernels_vs_plain(cfg, streams, offs, win, device):
+def decode_kernels_vs_plain(cfg, streams, offs, win, device, blocks=(0, LATER_BLOCK)):
     """Phase 6: each decode kernel against its plain version on the
-    windows of blocks 0 and LATER_BLOCK; returns {name: (max_abs_err,
-    kernel ms, plain ms, bytes)} for block 0."""
+    windows of ``blocks``; returns {name: (max_abs_err, kernel ms, plain
+    ms, bytes)} for block 0."""
     import torch
 
     from ulcx_torch.bitstream import decode_kernels as dk
@@ -382,7 +425,7 @@ def decode_kernels_vs_plain(cfg, streams, offs, win, device):
 
     p_tot = cfg.n_chan * cfg.block_size
     results = {}
-    for blk in (0, LATER_BLOCK):
+    for blk in blocks:
         windows = torch.gather(streams, 1, offs[:, blk : blk + 1] + torch.arange(win)).to(device)
         wc, _, tokens = fd._header_and_tokens(windows)
         seed = stream_seeds(windows.shape[0], blk).to(device)
@@ -529,7 +572,7 @@ def decode_snr(x, pcm):
 
 def decode_main_path(cfg, x, streams, win, sizes, device):
     """Phase 7: returns (launch counts, warm seconds of each repeat,
-    seconds of audio)."""
+    seconds of audio, round-trip SNR in dB)."""
     import torch
 
     from ulcx_torch.bitstream import decode_kernels as dk
@@ -565,7 +608,7 @@ def decode_main_path(cfg, x, streams, win, sizes, device):
         raise AssertionError(f"round-trip SNR {snr:.2f} dB, expected above {MIN_SNR_DB} dB")
     print(f"decode B={b} T={t} window {win} bytes: cold {cold:.3f} s, warm "
           f"{', '.join(f'{w:.3f}' for w in warm)} s, round-trip SNR {snr:.2f} dB", flush=True)
-    return counts, warm, b * t * cfg.block_size / cfg.rate_hz
+    return counts, warm, b * t * cfg.block_size / cfg.rate_hz, snr
 
 
 def decode_cuda_vs_cpu(cfg, streams, win, devices=("cuda", "cpu")):
@@ -613,6 +656,235 @@ def refuse_other_geometry(lib):
     print(f"geometry: {', '.join(cases)} refuse shared memory off their layout", flush=True)
 
 
+def rtf_line(label, warm, audio_s, counts, card):
+    """Print and return the realtime factor at the median warm run."""
+    med = sorted(warm)[len(warm) // 2]
+    print(f"{label} realtime factor {audio_s / med:.1f}x (median of {len(warm)}: {audio_s:.1f} s "
+          f"of audio in {med:.3f} s), launches {counts} [{card}]", flush=True)
+    return audio_s / med
+
+
+def transforms_on_card(device, card):
+    """Phase 9: fact and fft against the dense backend, then all three
+    timed."""
+    import torch
+
+    from ulcx_torch.ops import dct
+
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    for n in DCT_SIZES:
+        xc, xs = (torch.randn(DCT_ROWS, n, generator=gen).to(device) for _ in range(2))
+        want_c, want_s = dct.dct4(xc, "matmul"), dct.dst4(xs, "matmul")
+        worst = {}
+        for backend in ("fact", "fft"):
+            pair = dct.dct4_dst4(xc, xs, backend)
+            got = {"dct4": (dct.dct4(xc, backend), want_c), "dst4": (dct.dst4(xs, backend), want_s),
+                   "pair dct4": (pair[0], want_c), "pair dst4": (pair[1], want_s)}
+            for name, (g, w) in got.items():
+                if g.shape != w.shape or g.dtype != torch.float32:
+                    raise AssertionError(f"{backend} {name} N={n}: {g.shape} {g.dtype}")
+                rel = float(((g - w).abs() / w.abs().amax(-1, keepdim=True)).max())
+                if not rel <= DCT_TOL:
+                    raise AssertionError(f"{backend} {name} N={n}: {rel:.3g} of the block maximum "
+                                         f"from the dense backend (limit {DCT_TOL})")
+                worst[backend] = max(worst.get(backend, 0.0), rel)
+        x = torch.randn(DCT_TIMED_ROWS, n, generator=gen).to(device)
+        ms = {}
+        for backend in ("matmul", "fact", "fft"):
+            for _ in range(3):
+                dct.dct4_dst4(x, x, backend)
+            _, ms[backend] = timed(dct.dct4_dst4, (x, x, backend), 20)
+        print(f"N={n}: fact within {worst['fact']:.2e}, fft within {worst['fft']:.2e} of the block "
+              f"maximum from matmul; dct4+dst4 pair of [{DCT_TIMED_ROWS}, {n}]: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()) + f" [{card}]", flush=True)
+
+
+def large_blocks(device, card):
+    """Phase 10: returns ({kernel: (err, ms, plain ms, bytes)} at
+    P = 2 * BIG_BS, B = BIG_B, encode counts, decode counts)."""
+    import torch
+    from bench import make_corpus
+    from ulcx_torch.utils.config import CodecConfig
+
+    cfg = CodecConfig(rate_hz=44100, n_chan=2, block_size=BIG_BS)
+    if cfg.transform_for(BIG_BS) != "fact":
+        raise AssertionError("the bs4096 subblock does not take the fact backend")
+    x = make_corpus(BIG_B, BIG_T, BIG_BS)
+    print(f"B={BIG_B}, P={2 * BIG_BS}:", flush=True)
+    res = kernels_vs_plain(cfg, x[:, :2].copy(), device)
+    counts, warm, audio_s, encoded = main_path(cfg, x, device)
+    rtf_line(f"bs{BIG_BS} encode", warm, audio_s, counts, card)
+    streams, offs, win, sizes = pack_streams(encoded)
+    print(f"B={BIG_B}, P={2 * BIG_BS}, window {win} bytes ({2 * win - 2} tokens):", flush=True)
+    res.update(decode_kernels_vs_plain(cfg, streams, offs, win, device, blocks=(0, BIG_T - 1)))
+    dcounts, dwarm, audio_s, _ = decode_main_path(cfg, x, streams, win, sizes, device)
+    rtf_line(f"bs{BIG_BS} decode", dwarm, audio_s, dcounts, card)
+    return res, counts, dcounts
+
+
+def flat_n_nz_differs(cfg, x, device) -> int:
+    """Blocks of x [B, T, 2, N] whose coded count from the analysis of
+    all blocks at once differs from the block-by-block analysis's."""
+    import torch
+
+    from ulcx_torch.analysis.batched import analyze_stream_batched
+    from ulcx_torch.codec.encoder import init_carry_batched
+
+    blocks = torch.from_numpy(x).to(device)
+    b, t = blocks.shape[:2]
+    _, flat = analyze_stream_batched(init_carry_batched(cfg, b, device), blocks, cfg)
+    return int((flat.n_nz.reshape(b, t).cpu() != analyze(x, cfg, device)[1]).sum())
+
+
+def folded_encode(cfg, x, ref, ref_snr, device, card):
+    """Phase 11: fold_bitstream and flat_stream against phase 4's
+    blocks ``ref`` and phase 7's SNR; returns {knob: launch counts}."""
+    import dataclasses
+
+    import torch
+
+    from ulcx_torch.parallel.mesh import batch_decode
+
+    t = x.shape[1]
+    all_counts = {}
+    for label, change, runs in ((f"fold_bitstream={FOLD}", {"fold_bitstream": FOLD}, t // FOLD),
+                                ("flat_stream", {"flat_stream": True}, 1)):
+        counts, warm, audio_s, out = main_path(dataclasses.replace(cfg, **change), x, device,
+                                               stage_runs=runs)
+        if not torch.equal(out.window_ctrl, ref.window_ctrl):
+            raise AssertionError(f"{label}: window control differs from the block loop's")
+        same_size = out.size_bits == ref.size_bits
+        same = (out.data == ref.data).all(dim=-1)
+        print(f"{label}: window control identical; of {same.numel()} blocks {int(same_size.sum())} "
+              f"have the block loop's size and {int(same.sum())} its bytes", flush=True)
+        if "fold_bitstream" in change:
+            if not (bool(same.all()) and bool(same_size.all())):
+                raise AssertionError(f"{label}: bytes or sizes differ from the block loop's")
+        else:
+            tot, tot_ref = int(out.size_bits.sum()), int(ref.size_bits.sum())
+            if abs(tot - tot_ref) > FLAT_SIZE_REL * tot_ref:
+                raise AssertionError(f"{label}: total {tot} bits vs the block loop's {tot_ref}")
+            worst = int((out.size_bits - ref.size_bits).abs().max())
+            if worst > FLAT_BLOCK_BITS:
+                raise AssertionError(f"{label}: a block {worst} bits from the block loop's size "
+                                     f"(limit {FLAT_BLOCK_BITS})")
+            n_nz_differs = flat_n_nz_differs(cfg, x, device)
+            if n_nz_differs > FLAT_N_NZ_SHARE * same.numel():
+                raise AssertionError(f"{label}: the coded count differs from the block loop's in "
+                                     f"{n_nz_differs} of {same.numel()} blocks")
+            streams, _, win, sizes = pack_streams(out)
+            pcm, bits, corrupt = batch_decode(streams, t, win, cfg)
+            if bool(corrupt.any()) or not torch.equal(((bits + 7) // 8 * 8).cpu(), sizes):
+                raise AssertionError(f"{label}: its bytes decode corrupt or to other sizes")
+            snr = decode_snr(x, pcm.cpu().numpy())
+            if abs(snr - ref_snr) > FLAT_SNR_DB:
+                raise AssertionError(f"{label}: round-trip SNR {snr:.2f} dB vs {ref_snr:.2f} dB")
+            print(f"{label}: total {tot} bits vs {tot_ref} ({(tot - tot_ref) / tot_ref:+.4%}), largest "
+                  f"difference of a block {worst} bits, coded count differs in {n_nz_differs} "
+                  f"blocks, round-trip SNR {snr:.2f} dB vs {ref_snr:.2f} dB", flush=True)
+        rtf_line(f"{label} encode", warm, audio_s, counts, card)
+        all_counts[label] = counts
+    return all_counts
+
+
+def single_stream(cfg, device, card):
+    """Phase 12: encode_stream and decode_stream of one stream; returns
+    {entry point: launch counts}."""
+    import torch
+    from bench import make_corpus
+    from ulcx_torch.bitstream import decode_kernels as dk
+    from ulcx_torch.bitstream import encode_kernels as ek
+    from ulcx_torch.codec.decoder import decode_stream
+    from ulcx_torch.codec.encoder import encode_stream
+    from ulcx_torch.parallel.mesh import batch_encode
+
+    x = make_corpus(4, ONE_T, cfg.block_size)[0]  # [T, 2, N]
+    audio_s = ONE_T * cfg.block_size / cfg.rate_hz
+    kw = {"rate_kbps": RATE_KBPS}
+    ek.reset_launch_counts()
+    out, _ = encode_stream(x, cfg, "cbr", **kw)
+    torch.cuda.synchronize()
+    counts = ek.launch_counts()
+    if counts != PER_BLOCK:  # all T blocks in one fold
+        raise AssertionError(f"encode_stream launch counts {counts}, expected {PER_BLOCK}")
+    check_encoded(out.size_bits[None], out.data[None], 1, ONE_T, cfg, "encode_stream")
+    head, carry = encode_stream(x[: ONE_T // 2], cfg, "cbr", **kw)
+    tail, _ = encode_stream(x[ONE_T // 2 :], cfg, "cbr", carry=carry, **kw)
+    row, _ = batch_encode(x[None], cfg, "cbr", **kw)
+    for name, a, h, tl, r in zip(out._fields, out, head, tail, row):
+        if not torch.equal(torch.cat([h, tl]), a):
+            raise AssertionError(f"encode_stream: {name} changes when the stream is coded in halves")
+        if not torch.equal(r[0], a):
+            raise AssertionError(f"encode_stream: {name} differs from batch_encode of one stream")
+    warm = []
+    for _ in range(WARM_RUNS):
+        t0 = time.perf_counter()
+        again, _ = encode_stream(x, cfg, "cbr", **kw)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        if not torch.equal(again.data, out.data):
+            raise AssertionError("encode_stream: a second run gave other bytes")
+    print(f"encode_stream T={ONE_T}: identical in halves and as a batch of one, total "
+          f"{int(out.size_bits.sum())} bits", flush=True)
+    rtf_line("encode_stream", warm, audio_s, counts, card)
+    few = ONE_CPU_T
+    on_card, _ = encode_stream(x[:few], cfg, "cbr", **kw)
+    on_cpu, _ = encode_stream(x[:few], cfg, "cbr", device="cpu", **kw)
+    check_encoded(on_cpu.size_bits[None], on_cpu.data[None], 1, few, cfg, "encode_stream on the CPU")
+    if not torch.equal(on_card.window_ctrl.cpu(), on_cpu.window_ctrl):
+        raise AssertionError("encode_stream: window control differs between the card and the CPU")
+    tot_g, tot_c = int(on_card.size_bits.sum()), int(on_cpu.size_bits.sum())
+    if abs(tot_g - tot_c) > 0.01 * tot_c:
+        raise AssertionError(f"encode_stream: total bits {tot_g} (cuda) vs {tot_c} (cpu)")
+    print(f"encode_stream cuda vs cpu T={few}: window control equal, total bits {tot_g} vs {tot_c}, "
+          f"{int((on_card.data.cpu() == on_cpu.data).all(-1).sum())}/{few} blocks byte-identical",
+          flush=True)
+
+    streams, _, win, sizes = pack_streams(type(out)(*(v[None] for v in out)))
+    stream = streams[0]
+    dk.reset_launch_counts()
+    pcm, bits, corrupt, (off, _) = decode_stream(stream, ONE_T, win, cfg)
+    torch.cuda.synchronize()
+    dcounts = dk.launch_counts()
+    if dcounts != {k: ONE_T * v for k, v in DEC_PER_BLOCK.items()}:
+        raise AssertionError(f"decode_stream launch counts {dcounts}")
+    if bool(corrupt.any()):
+        raise AssertionError(f"decode_stream: {int(corrupt.sum())} corrupt blocks")
+    if not torch.equal(((bits + 7) // 8 * 8).cpu(), sizes[0]):
+        raise AssertionError("decode_stream: bits, rounded up to bytes, differ from the sizes")
+    if int(off) != int(sizes.sum()) // 8:
+        raise AssertionError(f"decode_stream: ends at byte {int(off)}, not {int(sizes.sum()) // 8}")
+    h = decode_stream(stream, ONE_T // 2, win, cfg)
+    tl = decode_stream(stream, ONE_T // 2, win, cfg, offset=h[3][0], carry=h[3][1])
+    for name, a, b_, w in zip(("pcm", "bits", "corrupt"), h, tl, (pcm, bits, corrupt)):
+        if not torch.equal(torch.cat([a, b_]), w):
+            raise AssertionError(f"decode_stream: {name} changes when the stream is decoded in halves")
+    if not torch.equal(tl[3][0], off):
+        raise AssertionError("decode_stream: the chained offset differs")
+    snr = decode_snr(x[None], pcm[None].cpu().numpy())
+    if not snr > MIN_SNR_DB:
+        raise AssertionError(f"decode_stream: round-trip SNR {snr:.2f} dB")
+    dwarm = []
+    s_dev = stream.to(device)
+    for _ in range(WARM_RUNS):
+        t0 = time.perf_counter()
+        decode_stream(s_dev, ONE_T, win, cfg)
+        torch.cuda.synchronize()
+        dwarm.append(time.perf_counter() - t0)
+    print(f"decode_stream T={ONE_T} window {win} bytes: identical in halves, no corrupt block, "
+          f"round-trip SNR {snr:.2f} dB", flush=True)
+    rtf_line("decode_stream", dwarm, audio_s, dcounts, card)
+    pcm_c, bits_c, corrupt_c, _ = decode_stream(stream, few, win, cfg, device="cpu")
+    if not (torch.equal(bits[:few].cpu(), bits_c) and torch.equal(corrupt[:few].cpu(), corrupt_c)):
+        raise AssertionError("decode_stream: bits or corrupt differ between the card and the CPU")
+    rms = float(torch.sqrt(torch.mean((pcm[:few].cpu() - pcm_c) ** 2)))
+    if rms > PCM_RMS:
+        raise AssertionError(f"decode_stream: pcm differs by {rms:.3g} RMS on the CPU (limit {PCM_RMS})")
+    print(f"decode_stream cuda vs cpu T={few}: bits and corrupt equal, pcm {rms:.3g} RMS apart",
+          flush=True)
+    return {"encode_stream": counts, "decode_stream": dcounts}
+
+
 def main() -> int:
     import torch
 
@@ -657,45 +929,49 @@ def main() -> int:
         raise AssertionError("CBR-128 bs2048 budget is not 5944 bits")
     x = make_corpus(MAIN_B, MAIN_T, BS)
     phase("3 kernels vs plain")
-    kres = {}
-    for b in (KERNEL_B, MAIN_B):
-        print(f"B={b}, P={2 * BS}:", flush=True)
-        kres[b] = kernels_vs_plain(cfg, x[:b, :2].copy(), "cuda")
+    print(f"B={MAIN_B}, P={2 * BS}:", flush=True)
+    kres = kernels_vs_plain(cfg, x[:, :2].copy(), "cuda")
     cfg_r = CodecConfig(rate_hz=44100, n_chan=RAGGED_CHAN, block_size=RAGGED_BS)
     print(f"B={RAGGED_B}, P={RAGGED_CHAN * RAGGED_BS} (ragged):", flush=True)
     kernels_vs_plain(cfg_r, ragged_corpus(), "cuda", overflow_words=True)
 
     phase("4 main path")
     counts, warm, audio_s, encoded = main_path(cfg, x, "cuda")
-    med = sorted(warm)[len(warm) // 2]
-    print(f"realtime factor {audio_s / med:.1f}x (median of {len(warm)}: {audio_s:.1f} s of audio "
-          f"in {med:.3f} s), launches {counts} [{card}]", flush=True)
+    rtf_line("encode", warm, audio_s, counts, card)
 
     phase("5 cuda vs cpu")
     cuda_vs_cpu(cfg, x[:CPU_B, :CPU_T].copy())
 
     streams, offs, win, sizes = pack_streams(encoded)
     phase("6 decode kernels vs plain")
-    dres = {}
-    for b in (KERNEL_B, MAIN_B):
-        print(f"B={b}, P={2 * BS}, window {win} bytes ({2 * win - 2} tokens):", flush=True)
-        dres[b] = decode_kernels_vs_plain(cfg, streams[:b], offs[:b], win, "cuda")
+    print(f"B={MAIN_B}, P={2 * BS}, window {win} bytes ({2 * win - 2} tokens):", flush=True)
+    dres = decode_kernels_vs_plain(cfg, streams, offs, win, "cuda")
     print(f"B={RAGGED_B} (ragged), P={2 * BS}:", flush=True)
     decode_kernels_vs_plain(cfg, streams[:RAGGED_B], offs[:RAGGED_B], win, "cuda")
     fsm_vs_plain_synthetic(cfg, streams, win, "cuda")
     rng_vs_plain_synthetic(2 * BS, RAGGED_B, "cuda")
 
     phase("7 decode main path")
-    dcounts, dwarm, audio_s = decode_main_path(cfg, x, streams, win, sizes, "cuda")
-    med = sorted(dwarm)[len(dwarm) // 2]
-    print(f"decode realtime factor {audio_s / med:.1f}x (median of {len(dwarm)}: {audio_s:.1f} s "
-          f"of audio in {med:.3f} s), launches {dcounts} [{card}]", flush=True)
+    dcounts, dwarm, audio_s, snr = decode_main_path(cfg, x, streams, win, sizes, "cuda")
+    rtf_line("decode", dwarm, audio_s, dcounts, card)
 
     phase("8 decode cuda vs cpu")
     decode_cuda_vs_cpu(cfg, streams, win)
 
-    rows = [(name, SOURCE, counts[name], v) for name, v in kres[MAIN_B].items()]
-    rows += [(name, DEC_SOURCE, dcounts[name], v) for name, v in dres[MAIN_B].items()]
+    phase("9 transforms on the card")
+    transforms_on_card("cuda", card)
+
+    phase("10 large blocks")
+    big, big_counts, big_dcounts = large_blocks("cuda", card)
+
+    phase("11 folded encode")
+    fold_counts = folded_encode(cfg, x, encoded, snr, "cuda", card)
+
+    phase("12 single stream")
+    one_counts = single_stream(cfg, "cuda", card)
+
+    rows = [(name, SOURCE, counts[name], v) for name, v in kres.items()]
+    rows += [(name, DEC_SOURCE, dcounts[name], v) for name, v in dres.items()]
     kernels = []
     for name, source, launches, (err, ms, plain_ms, nbytes) in rows:
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -707,6 +983,13 @@ def main() -> int:
             row["redesigned"] = REDESIGNED[name]
         if name in NOTES:
             row["note"] = NOTES[name]
+        # beside the main path's: the same kernel at the bs4096 main path's
+        # P = 8192, B = 256, and its launches on that and the folded paths
+        row["ms_p8192_b256"], row["plain_ms_p8192_b256"] = big[name][1], big[name][2]
+        row["launches_bs4096"] = {**big_counts, **big_dcounts}[name]
+        for knob, c in {**fold_counts, **one_counts}.items():
+            if name in c:
+                row[f"launches {knob}"] = c[name]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

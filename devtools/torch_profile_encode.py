@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Where an encode step of the PyTorch port spends its time, on one card.
 
-    python3 devtools/torch_profile_encode.py     # from the repo root; one CUDA GPU
+    python3 devtools/torch_profile_encode.py [VARIANT]   # from the repo root; one CUDA GPU
 
 Flagship shape: stereo bs2048, CBR-128, B=512 streams x T=8 blocks of
-``bench.make_corpus``. Prints
+``bench.make_corpus``. VARIANT is ``loop`` (the per-block loop, the
+default), ``foldN`` (``fold_bitstream=N``) or ``flat``
+(``flat_stream=True``); the folded variants have no per-block layers,
+so they print 2 and 3 only. Prints
 
 1. host-synchronised layers, ms per block step (median over the T steps
    of the second of two passes): analysis, prepare, planes + sort,
@@ -119,7 +122,7 @@ def warm_steps(cfg, blocks, runs=5):
             / blocks.shape[1] for _ in range(runs)]
 
 
-def main() -> int:
+def main(variant: str = "loop") -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -131,20 +134,24 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from bench import make_corpus
+    from torch_fold_rtf import variant_config  # the same names for the same knobs
     from ulcx_torch.parallel.mesh import batch_encode
-    from ulcx_torch.utils.config import CodecConfig
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    cfg = CodecConfig(rate_hz=44100, n_chan=2, block_size=BS)
+    cfg = variant_config(variant)
+    print(f"variant {variant}: fold_bitstream={cfg.fold_bitstream}, flat_stream={cfg.flat_stream}",
+          flush=True)
     blocks = torch.from_numpy(make_corpus(B, T, BS)).cuda()
     batch_encode(blocks, cfg, "cbr", rate_kbps=RATE_KBPS)  # build and warm up
-    layers(cfg, blocks)
-    lay = layers(cfg, blocks)
-    print("host-synced layers, ms per block step: " +
-          ", ".join(f"{k} {v:.3f}" for k, v in lay.items()) + f" (sum {sum(lay.values()):.3f})",
-          flush=True)
+    lay = None
+    if variant == "loop":
+        layers(cfg, blocks)
+        lay = layers(cfg, blocks)
+        print("host-synced layers, ms per block step: " +
+              ", ".join(f"{k} {v:.3f}" for k, v in lay.items()) + f" (sum {sum(lay.values()):.3f})",
+              flush=True)
     steps = warm_steps(cfg, blocks)
     print("unprofiled batch_encode, ms per block step: " + ", ".join(f"{v:.2f}" for v in steps),
           flush=True)
@@ -154,11 +161,11 @@ def main() -> int:
     for k, v in groups.items():
         per = f", {v['ms'] / v['count']:.4f} ms a launch" if k in WALKS and v["count"] else ""
         print(f"  {k}: {v['ms']:.2f} ms over {v['count']} launches{per}", flush=True)
-    print(json.dumps({"card": card, "layers_ms": lay, "step_ms": steps, "wall_ms": wall,
+    print(json.dumps({"card": card, "variant": variant, "layers_ms": lay, "step_ms": steps, "wall_ms": wall,
                       "busy_ms": busy,
                       "busy_share": busy / wall, "groups": groups}), flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(*sys.argv[1:2]))

@@ -1,5 +1,7 @@
 """The port on a CUDA card: each walk kernel against its plain version,
-and the encode and decode paths against the CPU port.
+the encode and decode paths against the CPU port, the transform
+backends against the dense one, the folded encode forms against the
+block loop, and the single-stream entry points round trip.
 
 Marked ``cuda``; every test skips without a card. The file imports
 nothing of JAX, so on a machine without it run it past the JAX test
@@ -8,13 +10,16 @@ configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from bench import make_corpus
 from chip_smoke import (
-    all_coef_window, pack_streams, refuse_other_geometry, stream_seeds, synthetic_flags,
+    FLAT_BLOCK_BITS, FLAT_N_NZ_SHARE, FLAT_SIZE_REL, all_coef_window, flat_n_nz_differs,
+    pack_streams, refuse_other_geometry, stream_seeds, synthetic_flags,
 )
 from ulcx_torch import _build
 from ulcx_torch.analysis.batched import analyze_block_batched
@@ -22,7 +27,11 @@ from ulcx_torch.bitstream import decode_kernels as dk
 from ulcx_torch.bitstream import encode_kernels as ek
 from ulcx_torch.bitstream import fast_decode as fd
 from ulcx_torch.bitstream import fast_encode as fe
-from ulcx_torch.codec.encoder import cbr_bit_budget, init_carry_batched, max_block_bytes
+from ulcx_torch.codec.decoder import decode_stream
+from ulcx_torch.codec.encoder import (
+    cbr_bit_budget, encode_stream, init_carry_batched, max_block_bytes,
+)
+from ulcx_torch.ops import dct
 from ulcx_torch.parallel.mesh import batch_decode, batch_encode
 from ulcx_torch.utils.config import CodecConfig
 
@@ -238,4 +247,70 @@ def test_decode_path_on_card_matches_cpu(dev):
     assert torch.equal(bits.cpu(), bits_c) and torch.equal(corrupt.cpu(), corrupt_c)
     assert not corrupt_c.any() and torch.equal((bits_c + 7) // 8 * 8, sizes)
     # the card's float32 matrix products sum in another order
+    assert float(torch.sqrt(torch.mean((pcm.cpu() - pcm_c) ** 2))) <= 1e-5
+
+
+@pytest.mark.parametrize("n", [4096, 8192])
+@pytest.mark.parametrize("backend", ["fact", "fft"])
+def test_transform_backends_match_dense_on_card(dev, backend, n):
+    gen = torch.Generator().manual_seed(n)
+    xc, xs = (torch.randn(16, n, generator=gen).to(dev) for _ in range(2))
+    want = dct.dct4(xc, "matmul"), dct.dst4(xs, "matmul")
+    got = dct.dct4(xc, backend), dct.dst4(xs, backend)
+    for g, w in zip((*got, *dct.dct4_dst4(xc, xs, backend)), (*want, *want)):
+        assert g.dtype == torch.float32 and g.is_contiguous()
+        assert bool(((g - w).abs() <= 1e-5 * w.abs().amax(-1, keepdim=True)).all())
+
+
+@pytest.mark.parametrize("change,runs", [({"fold_bitstream": 2}, 2), ({"fold_bitstream": 4}, 1),
+                                         ({"flat_stream": True}, 1)])
+def test_folded_encode_on_card_matches_block_loop(dev, change, runs):
+    """A ragged B = 13: the folded batches (26, 52) are no multiple of
+    the walks' stream tile either."""
+    t = 4
+    x = torch.from_numpy(make_corpus(13, t, N))
+    want, _ = batch_encode(x, CFG, "cbr", rate_kbps=128.0, device=dev)
+    ek.reset_launch_counts()
+    got, _ = batch_encode(x, CodecConfig(rate_hz=44100, n_chan=C, block_size=N, **change), "cbr",
+                          rate_kbps=128.0, device=dev)
+    torch.cuda.synchronize()
+    assert ek.launch_counts() == {"p1": 3 * runs, "p2": 3 * runs, "p3_size": 2 * runs,
+                                  "p3_materialize": runs}
+    assert torch.equal(got.window_ctrl, want.window_ctrl)
+    if "fold_bitstream" in change:
+        assert torch.equal(got.size_bits, want.size_bits) and torch.equal(got.data, want.data)
+    else:
+        # the card's GEMM sums the transform in another order at B*T rows
+        # than at B, so near-ties fall otherwise: bounded as chip_smoke.py
+        # bounds them at the flagship shape
+        assert int(got.size_bits.max()) <= int(cbr_bit_budget(CFG, 128.0))
+        assert int((got.size_bits - want.size_bits).abs().max()) <= FLAT_BLOCK_BITS
+        g, w = int(got.size_bits.sum()), int(want.size_bits.sum())
+        assert abs(g - w) <= FLAT_SIZE_REL * w, (g, w)
+        assert flat_n_nz_differs(CFG, x.numpy(), dev) <= math.ceil(FLAT_N_NZ_SHARE * 13 * t)
+
+
+def test_single_stream_round_trip_on_card(dev):
+    t = 8
+    x = make_corpus(4, t, N)[3]
+    out, _ = encode_stream(x, CFG, "cbr", rate_kbps=128.0)
+    head, carry = encode_stream(x[:3], CFG, "cbr", rate_kbps=128.0)
+    tail, _ = encode_stream(x[3:], CFG, "cbr", carry=carry, rate_kbps=128.0)
+    row, _ = batch_encode(x[None], CFG, "cbr", rate_kbps=128.0)
+    for a, h, tl, r in zip(out, head, tail, row):
+        assert a.device.type == "cuda"
+        assert torch.equal(torch.cat([h, tl]), a) and torch.equal(r[0], a)
+    streams, _, win, sizes = pack_streams(type(out)(*(v[None] for v in out)))
+    dk.reset_launch_counts()
+    pcm, bits, corrupt, (off, _) = decode_stream(streams[0], t, win, CFG)
+    torch.cuda.synchronize()
+    assert dk.launch_counts() == {"fsm": 0, "fsm_place": t, "rng_expand": t, "rng": 0}
+    assert not bool(corrupt.any()) and int(off) == int(sizes.sum()) // 8
+    assert torch.equal(((bits + 7) // 8 * 8).cpu(), sizes[0])
+    h = decode_stream(streams[0], 3, win, CFG)
+    tl = decode_stream(streams[0], t - 3, win, CFG, offset=h[3][0], carry=h[3][1])
+    for a, b_, w in zip(h[:3], tl[:3], (pcm, bits, corrupt)):
+        assert torch.equal(torch.cat([a, b_]), w)
+    pcm_c, bits_c, _, _ = decode_stream(streams[0], t, win, CFG, device="cpu")
+    assert torch.equal(bits.cpu(), bits_c)
     assert float(torch.sqrt(torch.mean((pcm.cpu() - pcm_c) ** 2))) <= 1e-5

@@ -157,9 +157,10 @@ def test_scan_major_layout(x):
 
 @pytest.mark.parametrize("change", [
     {"use_pallas": "off"}, {"rate_search": "bisect"}, {"noise_run_window": "gap"},
-    {"flat_stream": True}, {"transform_backend": "fact"}, {"matmul_max_n": 128},
+    {"n_chan": 32, "block_size": 2048}, {"block_size": 32768},  # P = 65,536
 ])
 def test_unported_settings_raise(change):
     cfg = TCodecConfig(**{**dict(rate_hz=44100, n_chan=C, block_size=N), **change})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_batch_encode(torch.zeros(8, 1, C, N), cfg, "cbr", rate_kbps=128.0, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+        t_batch_encode(torch.zeros(8, 1, cfg.n_chan, cfg.block_size), cfg, "cbr", rate_kbps=128.0,
+                       device="cpu")

@@ -85,13 +85,6 @@ def test_dct4_dst4_matches(n):
     assert _rel_err(ts, js) < RTOL
 
 
-def test_unported_transform_backends_raise():
-    x = torch.zeros(2, 64)
-    for backend in ("fact", "fft"):
-        with pytest.raises(NotImplementedError, match="A.7"):
-            tdct.dct4(x, backend)
-
-
 def test_windows_and_folds_match():
     rng = np.random.default_rng(3)
     for s in (64, 256):

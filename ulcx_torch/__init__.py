@@ -4,16 +4,19 @@ A second implementation of the ``ulcx`` package for one NVIDIA Hopper
 GPU. ``ulcx`` (JAX/Pallas) stays the reference; each module here
 mirrors the module of the same name there and is tested against it.
 
-Ported so far are the batched encode and decode paths.
-``parallel.mesh.batch_encode`` -> ``codec.encoder.encode_stream_batched``
--> per-block analysis -> ``bitstream.fast_encode`` rate search and
-materialization, whose four serial walks are CUDA C++ kernels
-(``csrc/encode_walks.cu``). ``parallel.mesh.batch_decode`` ->
-``codec.decoder.decode_stream_batched`` -> per block
-``bitstream.fast_decode.decode_block_fast`` (FSM kernel, record
-scatter, RNG-expand kernel; ``csrc/decode_walks.cu``) ->
-``codec.transform_batched.block_imdct_batched`` -> inverse M/S. The
-entry points run on the card (``device="cuda"``) unless the caller asks
+Ported so far are the batched and the single-stream encode and decode
+paths. ``parallel.mesh.batch_encode`` -> ``codec.encoder.encode_stream_batched``
+-> analysis (per block, or once over all blocks with ``flat_stream``)
+-> ``bitstream.fast_encode`` rate search and materialization (per block,
+or per chunk of ``fold_bitstream`` blocks), whose four serial walks are
+CUDA C++ kernels (``csrc/encode_walks.cu``). ``parallel.mesh.batch_decode``
+-> ``codec.decoder.decode_stream_batched`` -> per block
+``bitstream.fast_decode.decode_block_fast`` (FSM kernel, which places
+each record's expansion word, then the RNG-expand kernel;
+``csrc/decode_walks.cu``) -> ``codec.transform_batched.block_imdct_batched``
+-> inverse M/S. ``codec.encoder.encode_stream`` / ``encode_block`` and
+``codec.decoder.decode_stream`` / ``decode_block`` code one stream as a
+batch of one. The entry points run on the card (``device="cuda"``) unless the caller asks
 for ``device="cpu"``; below them every function follows the device of
 its input tensors: on the CPU the kernels run their plain PyTorch
 versions, on a CUDA device the kernels.

@@ -3,6 +3,8 @@
 Psychoacoustic and noise spectra are computed for every size class over
 the whole batch and each coefficient takes the class its stream's
 pattern uses, the same scheme as ``codec.transform_batched``.
+``analyze_block_batched`` is one block step; ``analyze_stream_batched``
+analyses T blocks at once, looping over blocks for window control only.
 """
 
 from __future__ import annotations
@@ -105,6 +107,49 @@ def _analyze_core(samples, window_ctrl, prev_last_ss, next_ov, cfg: CodecConfig)
         complexity=complexity.to(torch.float32),
         n_nz=n_nz,
     )
+
+
+def analyze_stream_batched(carry: EncoderCarry, blocks: torch.Tensor, cfg: CodecConfig):
+    """Whole-chunk analysis: blocks [B, T, C, N] -> (new carry,
+    AnalyzedBlock with leading [B*T], b-major).
+
+    Only window control is recurrent across blocks (the transient
+    filter's EMAs and the one-block lookahead): it loops over T on small
+    state. The transforms, psy, noise and importance then run once over
+    the flat batch [B*T]."""
+    n = cfg.block_size
+    b, t = blocks.shape[0], blocks.shape[1]
+
+    new_ms = ms_transform(blocks.to(torch.float32))  # [B, T, C, N]
+    prevs = torch.cat([carry.sample_prev[:, None], new_ms[:, :-1]], dim=1)
+    pairs = torch.cat([prevs, new_ms], dim=-1)  # [B, T, C, 2N]
+
+    tstate = carry.transient
+    wcs = [carry.next_window_ctrl]
+    for j in range(t):
+        next_wc, tstate = get_window_ctrl(pairs[:, j], tstate, cfg)
+        wcs.append(next_wc)
+    wcs_full = torch.stack(wcs, dim=1)  # [B, T+1]: block j is coded with column j
+
+    wc_t = wcs_full[:, :t]
+    next_ov_t = first_overlap(wcs_full[:, 1:], n)
+    last_ss_all = last_subblock_size(wc_t, n)  # [B, T]
+    prev_ss_t = torch.cat([carry.prev_last_ss[:, None], last_ss_all[:, : t - 1]], dim=1)
+
+    blk = _analyze_core(
+        pairs.reshape(b * t, cfg.n_chan, 2 * n),
+        wc_t.reshape(b * t),
+        prev_ss_t.reshape(b * t),
+        next_ov_t.reshape(b * t),
+        cfg,
+    )
+    new_carry = EncoderCarry(
+        sample_prev=new_ms[:, -1].contiguous(),
+        transient=tstate,
+        next_window_ctrl=wcs_full[:, t],
+        prev_last_ss=last_ss_all[:, -1],
+    )
+    return new_carry, blk
 
 
 def analyze_block_batched(carry: EncoderCarry, new_blocks: torch.Tensor, cfg: CodecConfig):

@@ -5,20 +5,26 @@ ULC_DecodeBlock, ulcDecoder.c:198-302): per block, the FSM and
 RNG-expand kernels give the coefficients, the batched inverse transform
 laps them with the previous block, and the pairwise M/S is undone. The
 block axis is a Python loop; each stream's byte offset advances by its
-block's whole bytes. The single-stream ``decode_block``/``decode_stream``
-and ``decode_stream_pipelined`` are later work (ROADMAP A.8, A.9).
+block's whole bytes and stays a tensor on the device. ``decode_stream``
+and ``decode_block`` decode one stream as a batch of one, and
+``decode_stream`` takes and returns ``(offset, carry)`` so that a stream
+continues call after call; ``decoder_carry_from_numpy`` and
+``decoder_carry_to_numpy`` move that carry to and from ``ulcx``'s.
+``decode_stream_pipelined`` is later work (ROADMAP A.9).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ulcx_torch.bitstream.decode_kernels import SEED
 from ulcx_torch.bitstream.fast_decode import bytes_to_nybbles, decode_block_fast  # noqa: F401
 from ulcx_torch.codec.transform_batched import block_imdct_batched
 from ulcx_torch.utils.config import CodecConfig, check_decode_supported
+from ulcx_torch.utils.device import on_device
 
 
 class DecoderCarry(NamedTuple):
@@ -49,24 +55,39 @@ def inverse_ms(block: torch.Tensor) -> torch.Tensor:
     return torch.cat([out, block[..., 2 * (c // 2) :, :]], dim=-2)
 
 
-def decode_stream_batched(streams: torch.Tensor, n_blocks: int, window_bytes: int,
-                          cfg: CodecConfig):
-    """Decode ``n_blocks`` blocks of each stream from the start.
+def decoder_carry_from_numpy(carry, device="cuda") -> DecoderCarry:
+    """An ``ulcx`` DecoderCarry with numpy leaves (``lap`` f32, ``prev_last_ss``
+    i32, ``rng`` u32; batched or not) -> the port's on ``device``. Fields
+    are read by name; the u32 state's bits are kept, not its value."""
+    rng = np.asarray(carry.rng).astype(np.uint32).view(np.int32)
+    return DecoderCarry(
+        lap=torch.tensor(np.asarray(carry.lap), dtype=torch.float32, device=device),
+        prev_last_ss=torch.tensor(np.asarray(carry.prev_last_ss), dtype=torch.int32, device=device),
+        rng=torch.tensor(rng, dtype=torch.int32, device=device),
+    )
 
-    streams [B, S] uint8, each padded so that every block's window of
-    ``window_bytes`` lies inside it (a start past S - window_bytes is
-    clamped there, as lax.dynamic_slice does). Returns (pcm
-    [B, n_blocks, C, N] f32, bits [B, n_blocks] i32, corrupt
-    [B, n_blocks] bool)."""
+
+def decoder_carry_to_numpy(carry: DecoderCarry) -> DecoderCarry:
+    """The port's carry -> the same structure with numpy leaves, field
+    for field what ``ulcx``'s holds: ``rng`` comes back as u32."""
+    return DecoderCarry(
+        lap=carry.lap.detach().cpu().numpy(),
+        prev_last_ss=carry.prev_last_ss.detach().cpu().numpy(),
+        rng=carry.rng.detach().cpu().numpy().view(np.uint32),
+    )
+
+
+def _decode_blocks(streams: torch.Tensor, n_blocks: int, window_bytes: int, cfg: CodecConfig,
+                   offset: torch.Tensor, carry: DecoderCarry):
+    """The block loop: ``n_blocks`` blocks of streams [B, S] from byte
+    ``offset`` [B] int64 and ``carry``. Returns (pcm [B, n_blocks, C, N],
+    bits, corrupt [B, n_blocks], (offset, carry) after the last block)."""
     check_decode_supported(cfg)
-    b, s_len = streams.shape
+    s_len = streams.shape[1]
     if window_bytes > s_len:
         raise ValueError(f"window of {window_bytes} bytes exceeds the {s_len}-byte streams")
-    dev = streams.device
-    carry = DecoderCarry.init(cfg, b, dev)
     lap, prev_ss, seed = carry
-    offset = torch.zeros(b, dtype=torch.int64, device=dev)
-    span = torch.arange(window_bytes, device=dev)
+    span = torch.arange(window_bytes, device=streams.device)
     pcms, bits_all, corrupt_all = [], [], []
     for _ in range(n_blocks):
         start = torch.clamp(offset, max=s_len - window_bytes)
@@ -77,4 +98,54 @@ def decode_stream_batched(streams: torch.Tensor, n_blocks: int, window_bytes: in
         bits_all.append(bits)
         corrupt_all.append(corrupt)
         offset = offset + (bits + 7) // 8
-    return torch.stack(pcms, 1), torch.stack(bits_all, 1), torch.stack(corrupt_all, 1)
+    return (torch.stack(pcms, 1), torch.stack(bits_all, 1), torch.stack(corrupt_all, 1),
+            (offset, DecoderCarry(lap, prev_ss, seed)))
+
+
+def decode_stream_batched(streams: torch.Tensor, n_blocks: int, window_bytes: int,
+                          cfg: CodecConfig):
+    """Decode ``n_blocks`` blocks of each stream from the start.
+
+    streams [B, S] uint8, each padded so that every block's window of
+    ``window_bytes`` lies inside it (a start past S - window_bytes is
+    clamped there, as lax.dynamic_slice does). Returns (pcm
+    [B, n_blocks, C, N] f32, bits [B, n_blocks] i32, corrupt
+    [B, n_blocks] bool)."""
+    b, dev = streams.shape[0], streams.device
+    offset = torch.zeros(b, dtype=torch.int64, device=dev)
+    pcm, bits, corrupt, _ = _decode_blocks(streams, n_blocks, window_bytes, cfg, offset,
+                                           DecoderCarry.init(cfg, b, dev))
+    return pcm, bits, corrupt
+
+
+def decode_stream(stream, n_blocks: int, window_bytes: int, cfg: CodecConfig, offset=None,
+                  carry: DecoderCarry | None = None, device="cuda"):
+    """Decode ``n_blocks`` blocks of one padded byte stream [S] uint8 on
+    ``device``. Returns (pcm [n_blocks, C, N], bits [n_blocks], corrupt
+    [n_blocks], (offset, carry)): the byte offset (a 0-d int64 tensor)
+    and the carry (no batch axis) after the last block; feed them back
+    in to continue the stream."""
+    stream = on_device(stream, device)
+    dev = stream.device
+    if offset is None:
+        offset = torch.zeros((), dtype=torch.int64, device=dev)
+    offset = torch.as_tensor(offset, dtype=torch.int64).to(dev).reshape(1)
+    if carry is None:
+        carry = DecoderCarry.init(cfg, 1, dev)
+    else:
+        carry = DecoderCarry(*(x.to(dev)[None] for x in carry))
+    pcm, bits, corrupt, (offset, carry) = _decode_blocks(
+        stream[None], n_blocks, window_bytes, cfg, offset, carry)
+    return pcm[0], bits[0], corrupt[0], (offset[0], DecoderCarry(*(x[0] for x in carry)))
+
+
+def decode_block(window: torch.Tensor, carry: DecoderCarry, cfg: CodecConfig):
+    """Decode one block from a byte window [W] uint8 that starts at the
+    block's boundary (W at least the largest block's bytes). ``carry``
+    has no batch axis. Returns (pcm [C, N], new carry, bits consumed,
+    corrupt), computed where ``window`` lies."""
+    check_decode_supported(cfg)
+    coefs, wc, bits, corrupt, seed = decode_block_fast(window[None], carry.rng[None], cfg)
+    pcm, lap, prev_ss = block_imdct_batched(coefs, wc, carry.lap[None], carry.prev_last_ss[None],
+                                            cfg)
+    return inverse_ms(pcm)[0], DecoderCarry(lap[0], prev_ss[0], seed[0]), bits[0], corrupt[0]

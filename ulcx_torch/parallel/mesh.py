@@ -5,7 +5,8 @@ the mesh: streams are independent, so one device codes the whole batch.
 Splitting the batch over several GPUs is later work (ROADMAP A.11).
 
 Both run on the card unless the caller passes ``device="cpu"``; with no
-card, the default raises rather than falling back to the CPU.
+card, the default raises rather than falling back to the CPU
+(``utils.device.on_device``).
 """
 
 from __future__ import annotations
@@ -15,17 +16,7 @@ import torch
 from ulcx_torch.codec.decoder import decode_stream_batched
 from ulcx_torch.codec.encoder import encode_stream_batched
 from ulcx_torch.utils.config import CodecConfig
-
-
-def _on(x, device) -> torch.Tensor:
-    """``x`` (tensor or array) as a tensor on ``device``; a CUDA device
-    with no card raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port runs on the card unless given device='cpu'"
-        )
-    return torch.as_tensor(x).to(device)
+from ulcx_torch.utils.device import on_device
 
 
 def batch_encode(blocks, cfg: CodecConfig, mode: str, mesh=None, scan_major: bool = False,
@@ -35,7 +26,7 @@ def batch_encode(blocks, cfg: CodecConfig, mode: str, mesh=None, scan_major: boo
     on ``device``."""
     if mesh is not None:
         raise NotImplementedError("multi-device batch_encode is not ported: ROADMAP A.11")
-    out, _ = encode_stream_batched(_on(blocks, device), cfg, mode, scan_major=scan_major, **kw)
+    out, _ = encode_stream_batched(on_device(blocks, device), cfg, mode, scan_major=scan_major, **kw)
     stats = {
         "total_bits": torch.sum(out.size_bits),
         "avg_complexity": torch.mean(out.complexity),
@@ -50,4 +41,4 @@ def batch_decode(streams, n_blocks: int, window_bytes: int, cfg: CodecConfig, me
     computed on ``device``."""
     if mesh is not None:
         raise NotImplementedError("multi-device batch_decode is not ported: ROADMAP A.11")
-    return decode_stream_batched(_on(streams, device), n_blocks, window_bytes, cfg)
+    return decode_stream_batched(on_device(streams, device), n_blocks, window_bytes, cfg)

@@ -43,10 +43,10 @@ class CodecConfig:
     use_psychoacoustics: bool = True
     use_noise_coding: bool = True
     use_window_switching: bool = True
-    # Transform backend: "matmul" (cosine-matrix products, for subblocks
-    # up to matmul_max_n), "fact" (DCT-IV factorized into two small
-    # matmul stages), "fft", or "auto" (matmul up to matmul_max_n, fact
-    # above). The port serves "matmul" only (ROADMAP A.7).
+    # Transform backend: "matmul" (cosine-matrix products; an explicit
+    # "matmul" is taken at any size), "fact" (DCT-IV factorized into two
+    # small matmul stages), "fft" (one 2N complex FFT), or "auto" (matmul
+    # for subblocks up to matmul_max_n, fact above).
     transform_backend: str = "auto"
     matmul_max_n: int = 2048
     # CBR/ABR rate search: "ladder" (candidates per round, exact under
@@ -60,10 +60,16 @@ class CodecConfig:
     # Bitstream kernels: "auto" and "on" both mean the kernels in the
     # port; "off" is the scan path (not ported, ROADMAP A.9).
     use_pallas: str = "auto"
-    # Fold the block axis T into the batch (not ported, ROADMAP A.8).
+    # Fold the block axis T into the batch: only window control loops
+    # over blocks, everything else runs once over B*T streams. Window
+    # control is that of the per-block loop; bytes and sizes may differ
+    # at float near-ties where the transform products sum in an order
+    # that depends on the batch (a card's GEMM).
     flat_stream: bool = False
-    # Fold the bitstream stages over chunks of blocks: byte-identical by
-    # contract, accepted and ignored by the port.
+    # Run the bitstream stages once per chunk of this many blocks, at
+    # fold * B streams (when T is a multiple of it; else per block).
+    # Byte-identical to the per-block loop. The walk state planes grow
+    # with it: 32 * P * B * fold bytes each.
     fold_bitstream: int = 1
 
     def __post_init__(self):
@@ -113,20 +119,10 @@ class CodecConfig:
         return "matmul" if n <= self.matmul_max_n else "fact"
 
 
-def _check_transforms(cfg: CodecConfig) -> None:
-    for ss in cfg.subblock_sizes:
-        backend = cfg.transform_for(ss)
-        if backend != "matmul" or ss > cfg.matmul_max_n:
-            raise NotImplementedError(
-                f"transform backend {backend!r} (subblock {ss} with "
-                f"matmul_max_n={cfg.matmul_max_n}) is not ported: ROADMAP A.7"
-            )
-
-
 def check_supported(cfg: CodecConfig) -> None:
     """Raise NotImplementedError for encoder settings this port does not
-    serve yet, naming the ROADMAP item that will. ``fold_bitstream``
-    changes no byte by contract and is ignored."""
+    serve yet, naming the ROADMAP item that will. The walks' words hold
+    a coded position in 16 bits, so P = n_chan * block_size <= 32768."""
     if cfg.use_pallas == "off":
         raise NotImplementedError(
             "use_pallas='off' (the scan path) is not ported: ROADMAP A.9"
@@ -139,9 +135,10 @@ def check_supported(cfg: CodecConfig) -> None:
         raise NotImplementedError(
             "noise_run_window='gap' is not ported: ROADMAP A.9"
         )
-    if cfg.flat_stream:
-        raise NotImplementedError("flat_stream is not ported: ROADMAP A.8")
-    _check_transforms(cfg)
+    if cfg.n_chan * cfg.block_size > 32768:
+        raise NotImplementedError(
+            f"P = {cfg.n_chan * cfg.block_size} > 32768 is not ported: ROADMAP A.9"
+        )
 
 
 def check_decode_supported(cfg: CodecConfig) -> None:
@@ -156,4 +153,3 @@ def check_decode_supported(cfg: CodecConfig) -> None:
             f"P = {cfg.n_chan * cfg.block_size} > 32768 (the scan decoder) is not ported: "
             "ROADMAP A.9"
         )
-    _check_transforms(cfg)
