@@ -77,13 +77,37 @@ Phases, each of which raises on failure:
     two calls chained through ``(offset, carry)``: identical bits,
     corrupt flags and PCM, no corrupt block; the first 4 blocks through
     both entry points on the CPU (the plain walks at these batch sizes)
-    with the tolerances of phases 5 and 8; prints both realtime factors.
+    with the tolerances of phases 5 and 8; prints both realtime factors;
+    then ``decode_stream_pipelined`` of the stream: bits, corrupt flags,
+    offset and RNG state identical to ``decode_stream``'s, PCM within
+    1e-5 relative and the lap within 1e-5, 64 placing-FSM launches and
+    one RNG-expand launch; prints its realtime factor beside
+    ``decode_stream``'s;
+13. past P = 32768, stereo bs32768 (P = 65,536, the reference's largest
+    block in stereo): all eight kernels against their plain versions at
+    a ragged B=13, the plain versions on the CPU on copies of the same
+    planes (on the card they would launch hundreds of thousands of small
+    kernels), every kernel timed at B=256, then ``batch_encode`` CBR-128
+    (the classic ladder above P = 32768: launches T x (6, 6, 5, 1)) and
+    ``batch_decode`` of its bytes at B=256, T=2 with the checks of
+    phases 4 and 7; prints both realtime factors and the peak memory;
+14. rate paths at stereo bs256, B=13, T=2: ``rate_search="bisect"`` on
+    the kernels (launches T x (11, 11, 10, 1)), its count, size and
+    bytes from the same walk inputs identical on the card and the CPU,
+    end to end within 1 % of the CPU's; ``use_pallas="off"`` on the
+    card, with the ladder and with bisect: no kernel launched, bytes
+    (and, decoding, PCM, bits and corrupt flags) identical to the
+    kernels'; the ladder and bisect encodes timed.
+
+Each phase prints the seconds it took.
 
 The second-to-last line is a JSON object with each kernel's launches on
 its main path, its largest difference from the plain version, both
 times at the main path's B=512, and its bound: the bytes of its inputs
 and outputs at that shape over the card's 3.35 TB/s (no PyTorch call
-computes any of these serial walks, so ``library_ms`` is null); the last
+computes any of these serial walks, so ``library_ms`` is null); beside
+them the times at P = 8192 (phase 10) and P = 65,536 (phase 13) and the
+launches on the other paths; the last
 is ``{"ok": true, "device": {...}}``. The script exits
 non-zero, printing neither, when there is no CUDA device or any phase
 fails. It imports nothing of JAX.
@@ -116,6 +140,12 @@ FLAT_SIZE_REL, FLAT_SNR_DB = 1e-3, 0.3  # phase 11: flat_stream against the bloc
 FLAT_BLOCK_BITS, FLAT_N_NZ_SHARE = 64, 0.005  # largest difference of a block, coded counts
 ONE_CPU_T = 4  # phase 12: blocks that also go through the CPU port
 ONE_T = 64  # phase 12: blocks of the single stream
+PIPE_REL, PIPE_LAP = 1e-5, 1e-5  # phase 12: pipelined vs per-block PCM (relative), lap
+HUGE_BS, HUGE_B, HUGE_T = 32768, 256, 2  # phase 13: stereo bs32768, P = 65,536
+HUGE_PLAIN_B = 13  # phase 13: kernels against their plain versions (on the CPU) at this B,
+HUGE_COLS = tuple(range(HUGE_PLAIN_B)) + tuple(range(HUGE_B - 8, HUGE_B))  # and at B = 256 on
+# these streams: the first 13 and the last 8 (a whole tile of every kernel)
+RATE_BS, RATE_B, RATE_T = 256, 13, 2  # phase 14: the rate paths, stereo bs256
 PCM_RMS = 1e-5  # card vs CPU: float32 matrix products sum in another order
 MIN_SNR_DB = 12.0  # the corpus round-trips at ~16.5 dB at CBR-128; far below means broken
 SOURCE = "ulcx_torch/csrc/encode_walks.cu"
@@ -131,7 +161,6 @@ REPLACES = {
     "rng_expand": "ulcx/bitstream/pallas_decode.py:393",
     "rng": "ulcx/bitstream/pallas_decode.py:346",
 }
-PER_BLOCK = {"p1": 3, "p2": 3, "p3_size": 2, "p3_materialize": 1}
 REDESIGNED = {"p1": "PR 4", "p2": "PR 3", "p3_size": "PR 3", "p3_materialize": "PR 3",
               "fsm": "PR 5", "fsm_place": "PR 5", "rng_expand": "PR 4", "rng": "PR 4"}
 NOTES = {
@@ -140,12 +169,26 @@ NOTES = {
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 RAGGED_B, RAGGED_BS, RAGGED_CHAN = 13, 256, 3
+# walk launches of one CBR block step: p1 and p2 once a size round and
+# once for the final round, p3 size once a size round, p3 materialize once
+PER_BLOCK = {"p1": 3, "p2": 3, "p3_size": 2, "p3_materialize": 1}  # seeded ladder, P <= 32768
+HUGE_PER_BLOCK = {"p1": 6, "p2": 6, "p3_size": 5, "p3_materialize": 1}  # classic ladder, P = 65,536
+BISECT_PER_BLOCK = {"p1": 11, "p2": 11, "p3_size": 10, "p3_materialize": 1}  # bisect, P = 512
 DEC_PER_BLOCK = {"fsm": 0, "fsm_place": 1, "rng_expand": 1, "rng": 0}
 TRUNCATED_BYTES = 48  # ~94 tokens, fewer than any block needs
 
 
+_PHASE = {"name": None, "t0": 0.0}
+
+
 def phase(name):
-    print(f"--- {name}", flush=True)
+    """Print the phase's heading, and the seconds the one before took."""
+    now = time.perf_counter()
+    if _PHASE["name"]:
+        print(f"--- {_PHASE['name']}: {now - _PHASE['t0']:.1f} s", flush=True)
+    _PHASE["name"], _PHASE["t0"] = name, now
+    if name:
+        print(f"--- {name}", flush=True)
 
 
 def card_line() -> str:
@@ -181,11 +224,43 @@ def io_bytes(args, out):
     return sum(x.nbytes for x in (*args, *out) if isinstance(x, torch.Tensor))
 
 
-def kernels_vs_plain(cfg, x, device, overflow_words=False):
+def take_cols(x, b, cols):
+    """Streams ``cols`` of a tensor of a batch of ``b`` streams, along
+    its one axis of length b (anything else as it is)."""
+    import torch
+
+    if not isinstance(x, torch.Tensor) or cols is None:
+        return x
+    axes = [i for i, n in enumerate(x.shape) if n == b]
+    if len(axes) != 1:
+        raise AssertionError(f"no single batch axis of length {b} in shape {tuple(x.shape)}")
+    return x.index_select(axes[0], torch.as_tensor(cols, device=x.device)).contiguous()
+
+
+def run_plain(plain, args, plain_device, b=None, cols=None):
+    """(output, ms) of one plain call: on the kernel's device, timed with
+    CUDA events, or on ``plain_device`` (the CPU) on copies of the
+    arguments, timed on the host's clock; with ``cols``, on those
+    streams of the batch of ``b`` only."""
+    import torch
+
+    args = tuple(take_cols(a, b, cols) for a in args)
+    if plain_device is None:
+        return timed(plain, args, 1)
+    args = tuple(a.to(plain_device) if isinstance(a, torch.Tensor) else a for a in args)
+    t0 = time.perf_counter()
+    out = plain(*args)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def kernels_vs_plain(cfg, x, device, overflow_words=False, plain_device=None, cols=None):
     """Phase 3: every kernel against its plain version on the planes of
     one block step, and with ``overflow_words`` p3 materialize once more
     into a word buffer most streams overflow; returns {name: (max_abs_err,
-    kernel ms, plain ms, bytes)}."""
+    kernel ms, plain ms, bytes)}. ``plain_device`` runs the plain
+    versions there, on copies of the planes; ``cols`` runs them on those
+    streams only (streams are independent) and compares the kernel's
+    outputs there."""
     import torch
 
     from ulcx_torch.bitstream import encode_kernels as ek
@@ -213,23 +288,28 @@ def kernels_vs_plain(cfg, x, device, overflow_words=False):
 
     results = {}
     s12 = state = None
-    for name, (kernel, plain, make_args) in calls.items():
+    b = blk.n_nz.shape[0]
+    where = f" on the {plain_device}" if plain_device else ""
+    on_cols = f" on {len(cols)} of {b} streams" if cols is not None else ""
+    for name, (kernel, plain_fn, make_args) in calls.items():
         args = make_args()
-        want, plain_ms = timed(plain, args, 1)
         for _ in range(WARMUP_LAUNCHES):
             kernel(*args)
         got, ms = timed(kernel, args, TIMED_LAUNCHES)
-        want = want if isinstance(want, tuple) else (want,)
         got = got if isinstance(got, tuple) else (got,)
+        want, plain_ms = run_plain(plain_fn, args, plain_device, b, cols)
+        want = want if isinstance(want, tuple) else (want,)
         err = 0
         for w, g in zip(want, got):
+            g = take_cols(g, b, cols).to(w.device)
             if w.shape != g.shape or w.dtype != g.dtype:
                 raise AssertionError(f"{name}: {g.shape} {g.dtype} vs plain {w.shape} {w.dtype}")
             err = max(err, int((g.long() - w.long()).abs().max()))
         if err:
             raise AssertionError(f"{name}: kernel differs from its plain version by {err}")
         results[name] = (err, ms, plain_ms, io_bytes(args, got))
-        print(f"{name}: identical to plain; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms", flush=True)
+        print(f"{name}: identical to plain{on_cols}; kernel {ms:.4f} ms, plain{where} "
+              f"{plain_ms:.1f} ms", flush=True)
         if name == "p1":
             s12 = got[0]
         elif name == "p2":
@@ -290,11 +370,11 @@ def check_encoded(sizes, data, b, t, cfg, label):
         raise AssertionError(f"{label}: bytes set past a block's size")
 
 
-def main_path(cfg, x, device, stage_runs=None):
-    """Phase 4 (and 10, 11): returns (launch counts, warm seconds of
+def main_path(cfg, x, device, stage_runs=None, per_block=PER_BLOCK):
+    """Phase 4 (and 10, 11, 13): returns (launch counts, warm seconds of
     each repeat, seconds of audio, the encoded blocks). ``stage_runs``
     is how often the bitstream stages run: once a block unless
-    ``cfg`` folds them."""
+    ``cfg`` folds them; ``per_block`` the launches of one run."""
     import torch
 
     from ulcx_torch.bitstream import encode_kernels as ek
@@ -308,7 +388,7 @@ def main_path(cfg, x, device, stage_runs=None):
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     counts = ek.launch_counts()
-    want = {k: (t if stage_runs is None else stage_runs) * v for k, v in PER_BLOCK.items()}
+    want = {k: (t if stage_runs is None else stage_runs) * v for k, v in per_block.items()}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     check_encoded(out.size_bits, out.data, b, t, cfg, "main path")
@@ -378,17 +458,21 @@ def pack_streams(out):
     return torch.from_numpy(streams), torch.from_numpy(offs), win, torch.from_numpy(sizes)
 
 
-def decode_vs_plain(name, kernel, plain, args, label):
+def decode_vs_plain(name, kernel, plain, args, label, plain_device=None, cols=None):
     """One decode kernel against its plain version (floats compared as
-    bits), both timed: (max_abs_err, kernel ms, plain ms, bytes)."""
+    bits), both timed: (max_abs_err, kernel ms, plain ms, bytes); the
+    plain version on ``plain_device`` when one is given, on copies, and
+    on the streams ``cols`` only when they are given."""
     import torch
 
-    want, plain_ms = timed(plain, args, 1)
     for _ in range(WARMUP_LAUNCHES):
         kernel(*args)
     got, ms = timed(kernel, args, TIMED_LAUNCHES)
+    b = args[0].shape[-1]  # wc [B] or flags [P, B]
+    want, plain_ms = run_plain(plain, args, plain_device, b, cols)
     err = 0.0
     for w, g in zip(want, got):
+        g = take_cols(g, b, cols).to(w.device)
         if w.shape != g.shape or w.dtype != g.dtype:
             raise AssertionError(f"{name}: {g.shape} {g.dtype} vs plain {w.shape} {w.dtype}")
         if g.dtype == torch.float32:
@@ -399,8 +483,9 @@ def decode_vs_plain(name, kernel, plain, args, label):
         if not same:
             raise AssertionError(f"{name} ({label}): kernel differs from its plain version "
                                  f"(max abs err {err})")
-    print(f"{name} {label}: identical to plain (bits); kernel {ms:.4f} ms, plain {plain_ms:.1f} ms",
-          flush=True)
+    on_cols = f" on {len(cols)} of {b} streams" if cols is not None else ""
+    print(f"{name} {label}: identical to plain (bits){on_cols}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.1f} ms", flush=True)
     return (err, ms, plain_ms, io_bytes(args, got)), got
 
 
@@ -414,10 +499,12 @@ def stream_seeds(b, seed):
     return torch.from_numpy(s.view(np.int32))
 
 
-def decode_kernels_vs_plain(cfg, streams, offs, win, device, blocks=(0, LATER_BLOCK)):
+def decode_kernels_vs_plain(cfg, streams, offs, win, device, blocks=(0, LATER_BLOCK),
+                            plain_device=None, cols=None):
     """Phase 6: each decode kernel against its plain version on the
-    windows of ``blocks``; returns {name: (max_abs_err, kernel ms, plain
-    ms, bytes)} for block 0."""
+    windows of ``blocks`` (the plain versions on ``plain_device`` when
+    one is given, on the streams ``cols`` when they are given); returns
+    {name: (max_abs_err, kernel ms, plain ms, bytes)} for block 0."""
     import torch
 
     from ulcx_torch.bitstream import decode_kernels as dk
@@ -439,8 +526,9 @@ def decode_kernels_vs_plain(cfg, streams, offs, win, device, blocks=(0, LATER_BL
             "rng_expand": (dk.rng_expand, dk.rng_expand_plain, (flags, seed)),
             "rng": (dk.rng, dk.rng_plain, (dk.rng_flags(flags), seed)),
         }
-        for name, (kernel, plain, args) in calls.items():
-            res, _ = decode_vs_plain(name, kernel, plain, args, f"block {blk}")
+        for name, (kernel, plain_fn, args) in calls.items():
+            res, _ = decode_vs_plain(name, kernel, plain_fn, args, f"block {blk}", plain_device,
+                                     cols)
             if blk == 0:
                 results[name] = res
     return results
@@ -499,7 +587,7 @@ def fsm_vs_plain_synthetic(cfg, streams, win, device):
             "fsm_place", dk.fsm_place, dk.fsm_place_plain, args, label)
         if not (torch.equal(consumed, consumed_p) and torch.equal(corrupt, corrupt_p)):
             raise AssertionError(f"{label}: the FSM's two modes disagree on consumed or corrupt")
-        records = ((rec >> 15) != 0).sum(0)
+        records = ((rec >> dk.REC_START_BITS) != 0).sum(0)
         if not torch.equal(records, (flags & 1).sum(0)):
             raise AssertionError(f"{label}: the flags hold other records than the record plane")
         consumed, corrupt, records = consumed.cpu(), corrupt.cpu(), records.cpu()
@@ -794,7 +882,7 @@ def single_stream(cfg, device, card):
     from bench import make_corpus
     from ulcx_torch.bitstream import decode_kernels as dk
     from ulcx_torch.bitstream import encode_kernels as ek
-    from ulcx_torch.codec.decoder import decode_stream
+    from ulcx_torch.codec.decoder import decode_stream, decode_stream_pipelined
     from ulcx_torch.codec.encoder import encode_stream
     from ulcx_torch.parallel.mesh import batch_encode
 
@@ -843,7 +931,7 @@ def single_stream(cfg, device, card):
     streams, _, win, sizes = pack_streams(type(out)(*(v[None] for v in out)))
     stream = streams[0]
     dk.reset_launch_counts()
-    pcm, bits, corrupt, (off, _) = decode_stream(stream, ONE_T, win, cfg)
+    pcm, bits, corrupt, (off, dcarry) = decode_stream(stream, ONE_T, win, cfg)
     torch.cuda.synchronize()
     dcounts = dk.launch_counts()
     if dcounts != {k: ONE_T * v for k, v in DEC_PER_BLOCK.items()}:
@@ -882,7 +970,168 @@ def single_stream(cfg, device, card):
         raise AssertionError(f"decode_stream: pcm differs by {rms:.3g} RMS on the CPU (limit {PCM_RMS})")
     print(f"decode_stream cuda vs cpu T={few}: bits and corrupt equal, pcm {rms:.3g} RMS apart",
           flush=True)
-    return {"encode_stream": counts, "decode_stream": dcounts}
+
+    dk.reset_launch_counts()
+    ppcm, pbits, pcorrupt, (poff, pcarry) = decode_stream_pipelined(stream, ONE_T, win, cfg)
+    torch.cuda.synchronize()
+    pcounts = dk.launch_counts()
+    if pcounts != {"fsm": 0, "fsm_place": ONE_T, "rng_expand": 1, "rng": 0}:
+        raise AssertionError(f"decode_stream_pipelined launch counts {pcounts}")
+    for name, a, b_ in (("bits", pbits, bits), ("corrupt", pcorrupt, corrupt), ("offset", poff, off),
+                        ("rng", pcarry.rng, dcarry.rng),
+                        ("prev_last_ss", pcarry.prev_last_ss, dcarry.prev_last_ss)):
+        if not torch.equal(a, b_):
+            raise AssertionError(f"decode_stream_pipelined: {name} differs from decode_stream's")
+    ref = pcm.double()
+    rel = float(torch.sqrt((ppcm.double() - ref).var() / ref.var()))
+    lap = float((pcarry.lap - dcarry.lap).abs().max())
+    if not (rel < PIPE_REL and lap <= PIPE_LAP):
+        raise AssertionError(f"decode_stream_pipelined: pcm {rel:.3g} relative, lap {lap:.3g} "
+                             f"from decode_stream's (limits {PIPE_REL}, {PIPE_LAP})")
+    pwarm = []
+    for _ in range(WARM_RUNS):
+        t0 = time.perf_counter()
+        decode_stream_pipelined(s_dev, ONE_T, win, cfg)
+        torch.cuda.synchronize()
+        pwarm.append(time.perf_counter() - t0)
+    print(f"decode_stream_pipelined T={ONE_T}: bits, corrupt, offset and RNG state identical to "
+          f"decode_stream's, pcm {rel:.3g} relative and lap {lap:.3g} apart", flush=True)
+    rtf_line("decode_stream_pipelined", pwarm, audio_s, pcounts, card)
+    print(f"single-stream decode realtime factors: decode_stream "
+          f"{audio_s / sorted(dwarm)[1]:.1f}x, decode_stream_pipelined "
+          f"{audio_s / sorted(pwarm)[1]:.1f}x [{card}]", flush=True)
+    return {"encode_stream": counts, "decode_stream": dcounts,
+            "decode_stream_pipelined": pcounts}
+
+
+def past_32768(device, card):
+    """Phase 13: stereo bs32768, P = 65,536. Every kernel against its
+    plain version on the planes of the path's B = 256, on HUGE_COLS of
+    its streams, and at a ragged B = 13; the plain versions run on the
+    CPU, on copies of the same planes, since they are Python loops and
+    whole-plane ops that would launch hundreds of thousands of small
+    kernels on the card. Then batch_encode CBR-128 and batch_decode of
+    its bytes at B = 256, T = 2 with the checks of phases 4 and 7.
+    Returns ({kernel: (err, ms, plain ms, bytes)} at B = 13, the same at
+    B = 256, encode counts, decode counts)."""
+    import torch
+    from bench import make_corpus
+    from ulcx_torch.utils.config import CodecConfig
+
+    cfg = CodecConfig(rate_hz=44100, n_chan=2, block_size=HUGE_BS)
+    p_tot = 2 * HUGE_BS
+    x = make_corpus(HUGE_B, HUGE_T, HUGE_BS)
+    cols = f"streams {HUGE_COLS[0]}-{HUGE_COLS[HUGE_PLAIN_B - 1]} and {HUGE_COLS[HUGE_PLAIN_B]}-" \
+           f"{HUGE_COLS[-1]}"
+    print(f"B={HUGE_B}, P={p_tot}, plain versions on the CPU on {cols}:", flush=True)
+    full = kernels_vs_plain(cfg, x, device, plain_device="cpu", cols=HUGE_COLS)
+    print(f"B={HUGE_PLAIN_B} (ragged), P={p_tot}, plain versions on the CPU:", flush=True)
+    res = kernels_vs_plain(cfg, x[:HUGE_PLAIN_B].copy(), device, plain_device="cpu")
+    torch.cuda.reset_peak_memory_stats()
+    counts, warm, audio_s, encoded = main_path(cfg, x, device, per_block=HUGE_PER_BLOCK)
+    enc_peak = torch.cuda.max_memory_allocated()
+    rtf_line(f"bs{HUGE_BS} encode", warm, audio_s, counts, card)
+    streams, offs, win, sizes = pack_streams(encoded)
+    print(f"B={HUGE_B}, P={p_tot}, window {win} bytes ({2 * win - 2} tokens), plain versions on "
+          f"the CPU on {cols}:", flush=True)
+    full.update(decode_kernels_vs_plain(cfg, streams, offs, win, device, blocks=(0,),
+                                        plain_device="cpu", cols=HUGE_COLS))
+    print(f"B={HUGE_PLAIN_B} (ragged), P={p_tot}, plain versions on the CPU:", flush=True)
+    res.update(decode_kernels_vs_plain(cfg, streams[:HUGE_PLAIN_B], offs[:HUGE_PLAIN_B], win,
+                                       device, blocks=(0, HUGE_T - 1), plain_device="cpu"))
+    torch.cuda.reset_peak_memory_stats()
+    dcounts, dwarm, audio_s, _ = decode_main_path(cfg, x, streams, win, sizes, device)
+    dec_peak = torch.cuda.max_memory_allocated()
+    rtf_line(f"bs{HUGE_BS} decode", dwarm, audio_s, dcounts, card)
+    print(f"P={p_tot}, B={HUGE_B}: peak memory encode {enc_peak / 2**30:.2f} GiB "
+          f"({enc_peak / HUGE_B / 2**20:.1f} MiB a stream), decode {dec_peak / 2**30:.2f} GiB "
+          f"[{card}]", flush=True)
+    print(f"P={p_tot} kernel ms at B={HUGE_B}: "
+          + ", ".join(f"{k} {v[1]:.4f}" for k, v in full.items()) + f" [{card}]", flush=True)
+    return res, full, counts, dcounts
+
+
+def rate_paths(device, card):
+    """Phase 14: rate_search="bisect" and use_pallas="off" at stereo
+    bs256, B = 13, T = 2. Returns {path: launch counts}."""
+    import dataclasses
+
+    import torch
+    from bench import make_corpus
+    from ulcx_torch.bitstream import decode_kernels as dk
+    from ulcx_torch.bitstream import encode_kernels as ek
+    from ulcx_torch.bitstream import fast_encode as fe
+    from ulcx_torch.codec.encoder import cbr_bit_budget, max_block_bytes
+    from ulcx_torch.parallel.mesh import batch_decode, batch_encode
+    from ulcx_torch.utils.config import CodecConfig
+
+    cfg = CodecConfig(rate_hz=44100, n_chan=2, block_size=RATE_BS)
+    bcfg = dataclasses.replace(cfg, rate_search="bisect")
+    x = make_corpus(RATE_B, RATE_T, RATE_BS)
+    kw = {"rate_kbps": RATE_KBPS}
+
+    ek.reset_launch_counts()
+    bis, _ = batch_encode(x, bcfg, "cbr", **kw)
+    torch.cuda.synchronize()
+    bcounts = ek.launch_counts()
+    want = {k: RATE_T * v for k, v in BISECT_PER_BLOCK.items()}
+    if bcounts != want:
+        raise AssertionError(f"bisect launch counts {bcounts}, expected {want}")
+    check_encoded(bis.size_bits, bis.data, RATE_B, RATE_T, cfg, "bisect")
+    # the same walk inputs on the card and on the CPU: identical counts and bytes
+    blk, _ = analyze(x[:, :1].copy(), cfg, device)
+    fb = fe.prepare_fast(blk, cfg)
+    budget = cbr_bit_budget(cfg, RATE_KBPS).expand(RATE_B).to(torch.int32)
+    got = fe.search_materialize_fast(fb, blk.n_nz, budget.to(device), bcfg, max_block_bytes(cfg))
+    want_c = fe.search_materialize_fast(type(fb)(*(v.cpu() for v in fb)), blk.n_nz.cpu(), budget,
+                                        bcfg, max_block_bytes(cfg))
+    for name, a, b_ in zip(("count", "size", "bytes"), got, want_c):
+        if not torch.equal(a.cpu(), b_):
+            raise AssertionError(f"bisect: {name} differs between the card and the CPU")
+    cpu_out, _ = batch_encode(x, bcfg, "cbr", device="cpu", **kw)
+    tot_g, tot_c = int(bis.size_bits.sum()), int(cpu_out.size_bits.sum())
+    if not torch.equal(bis.window_ctrl.cpu(), cpu_out.window_ctrl) or abs(tot_g - tot_c) > 0.01 * tot_c:
+        raise AssertionError(f"bisect: window control or total bits ({tot_g} vs {tot_c}) differ "
+                             "between the card and the CPU")
+    lad, _ = batch_encode(x, cfg, "cbr", **kw)
+    print(f"bisect B={RATE_B} T={RATE_T}: launches {bcounts}; from the same walk inputs count, size "
+          f"and bytes identical on the card and the CPU; end to end {tot_g} bits (CPU {tot_c}), "
+          f"the ladder {int(lad.size_bits.sum())}", flush=True)
+    secs = {}
+    for label, c in (("ladder", cfg), ("bisect", bcfg), ("ladder", cfg), ("bisect", bcfg)):
+        for _ in range(WARM_RUNS):
+            t0 = time.perf_counter()
+            batch_encode(x, c, "cbr", **kw)
+            torch.cuda.synchronize()
+            secs.setdefault(label, []).append(time.perf_counter() - t0)
+    med = {k: sorted(v)[len(v) // 2] for k, v in secs.items()}
+    print(f"encode B={RATE_B} T={RATE_T} bs{RATE_BS}, median of {2 * WARM_RUNS} warm runs: ladder "
+          f"{med['ladder'] * 1e3:.2f} ms, bisect {med['bisect'] * 1e3:.2f} ms "
+          f"({med['bisect'] / med['ladder']:.2f}x) [{card}]", flush=True)
+
+    streams, _, win, _ = pack_streams(lad)
+    ref_dec = batch_decode(streams, RATE_T, win, cfg)
+    out = {"bisect": bcounts}
+    for label, c in (("off", dataclasses.replace(cfg, use_pallas="off")),
+                     ("off, bisect", dataclasses.replace(bcfg, use_pallas="off"))):
+        ek.reset_launch_counts()
+        dk.reset_launch_counts()
+        enc, _ = batch_encode(x, c, "cbr", **kw)
+        dec = batch_decode(streams, RATE_T, win, c) if label == "off" else None
+        torch.cuda.synchronize()
+        launched = {**ek.launch_counts(), **dk.launch_counts()}
+        if any(launched.values()):
+            raise AssertionError(f"use_pallas={label}: kernels launched {launched}")
+        ref = lad if label == "off" else bis
+        for name in ("size_bits", "data", "window_ctrl"):
+            if not torch.equal(getattr(enc, name), getattr(ref, name)):
+                raise AssertionError(f"use_pallas={label}: {name} differs from the kernels'")
+        if dec is not None and not all(torch.equal(a, b_) for a, b_ in zip(dec, ref_dec)):
+            raise AssertionError("use_pallas=off: decode differs from the kernels'")
+        print(f"use_pallas={label} on the card: no kernel launched, bytes identical to the kernels'"
+              + ("; decoded pcm, bits and corrupt identical" if dec is not None else ""), flush=True)
+        out[f"use_pallas={label}"] = launched
+    return out
 
 
 def main() -> int:
@@ -970,6 +1219,13 @@ def main() -> int:
     phase("12 single stream")
     one_counts = single_stream(cfg, "cuda", card)
 
+    phase("13 past P = 32768")
+    huge, huge_full, huge_counts, huge_dcounts = past_32768("cuda", card)
+
+    phase("14 rate paths")
+    rate_counts = rate_paths("cuda", card)
+    phase(None)
+
     rows = [(name, SOURCE, counts[name], v) for name, v in kres.items()]
     rows += [(name, DEC_SOURCE, dcounts[name], v) for name, v in dres.items()]
     kernels = []
@@ -987,7 +1243,14 @@ def main() -> int:
         # P = 8192, B = 256, and its launches on that and the folded paths
         row["ms_p8192_b256"], row["plain_ms_p8192_b256"] = big[name][1], big[name][2]
         row["launches_bs4096"] = {**big_counts, **big_dcounts}[name]
-        for knob, c in {**fold_counts, **one_counts}.items():
+        # and at the bs32768 main path's P = 65,536: kernel and plain (on
+        # the CPU, on HUGE_COLS of the streams) at its B = 256, and at the
+        # ragged B = 13
+        row["ms_p65536_b256"], row["max_abs_err_p65536_b256"] = huge_full[name][1], huge_full[name][0]
+        row[f"plain_cpu_ms_p65536_b256_{len(HUGE_COLS)}_streams"] = huge_full[name][2]
+        row["ms_p65536_b13"], row["plain_cpu_ms_p65536_b13"] = huge[name][1], huge[name][2]
+        row["launches_bs32768"] = {**huge_counts, **huge_dcounts}[name]
+        for knob, c in {**fold_counts, **one_counts, **rate_counts}.items():
             if name in c:
                 row[f"launches {knob}"] = c[name]
         kernels.append(row)

@@ -1,7 +1,9 @@
-"""The port on a CUDA card: each walk kernel against its plain version,
-the encode and decode paths against the CPU port, the transform
-backends against the dense one, the folded encode forms against the
-block loop, and the single-stream entry points round trip.
+"""The port on a CUDA card: each walk kernel against its plain version
+(also past P = 32768), the encode and decode paths against the CPU
+port, the transform backends against the dense one, the folded encode
+forms against the block loop, the single-stream entry points round
+trip, the pipelined decoder against the per-block one, and the rate
+paths (``bisect``, ``use_pallas="off"``).
 
 Marked ``cuda``; every test skips without a card. The file imports
 nothing of JAX, so on a machine without it run it past the JAX test
@@ -10,6 +12,7 @@ configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -27,7 +30,7 @@ from ulcx_torch.bitstream import decode_kernels as dk
 from ulcx_torch.bitstream import encode_kernels as ek
 from ulcx_torch.bitstream import fast_decode as fd
 from ulcx_torch.bitstream import fast_encode as fe
-from ulcx_torch.codec.decoder import decode_stream
+from ulcx_torch.codec.decoder import decode_stream, decode_stream_pipelined
 from ulcx_torch.codec.encoder import (
     cbr_bit_budget, encode_stream, init_carry_batched, max_block_bytes,
 )
@@ -314,3 +317,96 @@ def test_single_stream_round_trip_on_card(dev):
     pcm_c, bits_c, _, _ = decode_stream(streams[0], t, win, CFG, device="cpu")
     assert torch.equal(bits.cpu(), bits_c)
     assert float(torch.sqrt(torch.mean((pcm.cpu() - pcm_c) ** 2))) <= 1e-5
+
+
+def _cpu(args):
+    return tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+
+
+def test_kernels_match_plain_past_32768(dev):
+    """Stereo bs32768 (P = 65,536), a ragged B = 5: the four encode
+    walks on the planes of its first block and the three decode kernels
+    on the windows of its encoded bytes, each against its plain version
+    run on the CPU on copies (on the card the plain versions would
+    launch hundreds of thousands of small kernels)."""
+    cfg = CodecConfig(rate_hz=44100, n_chan=2, block_size=32768)
+    p, b = 65536, 5
+    x = torch.from_numpy(make_corpus(b, 2, 32768)).to(dev)
+    _, blk = analyze_block_batched(init_carry_batched(cfg, b, dev), x[:, 0], cfg)
+    pl = fe.make_planes(fe.prepare_fast(blk, cfg))
+    nn = torch.minimum(((blk.n_nz[:, None] + 7) // 8) * torch.arange(1, 9, device=dev),
+                       blk.n_nz[:, None]).to(torch.int32)
+    t, c = fe._tc_of(pl, nn)
+    s12 = ek.p1(t, c, pl.key, pl.coef, pl.aux)
+    _same(s12.cpu(), ek.p1_plain(*_cpu((t, c, pl.key, pl.coef, pl.aux))))
+    state = ek.p2(t, c, pl.key, pl.thr, pl.aux, s12)
+    _same(state.cpu(), ek.p2_plain(*_cpu((t, c, pl.key, pl.thr, pl.aux, s12))))
+    ncp = state & ek.NCP_MAX
+    assert bool(((ncp >= 32768) & (ncp < ek.NCP_MAX)).any())  # positions past 16 bits
+    _same(ek.p3_size(pl.thr, pl.aux, state).cpu(), ek.p3_size_plain(*_cpu((pl.thr, pl.aux, state))))
+    args = (pl.coef, pl.ampn, pl.hfamp, pl.hfmeta, pl.aux, state, pl.hdr, max_block_bytes(cfg) // 4)
+    _same(tuple(v.cpu() for v in ek.p3_materialize(*args)), ek.p3_materialize_plain(*_cpu(args)))
+
+    out, _ = batch_encode(x, cfg, "cbr", rate_kbps=128.0, device=dev)
+    streams, _, win, _ = pack_streams(out)
+    wc, _, tokens = fd._header_and_tokens(streams[:, :win].to(dev))
+    got = dk.fsm(wc, tokens, p, 32768)
+    for g, w in zip(got, dk.fsm_plain(*_cpu((wc, tokens)), p, 32768)):
+        assert torch.equal(g.cpu(), w)
+    rec = got[0].cpu()
+    assert bool(((rec & dk.REC_START_MASK)[(rec >> dk.REC_START_BITS) != 0] >= 32768).any())
+    flags, consumed, corrupt = dk.fsm_place(wc, tokens, p, 32768)
+    for g, w in zip((flags, consumed, corrupt), dk.fsm_place_plain(*_cpu((wc, tokens)), p, 32768)):
+        assert torch.equal(g.cpu(), w)
+    assert not bool(corrupt.any())
+    seed = stream_seeds(b, 8).to(dev)
+    coef, s1 = dk.rng_expand(flags, seed)
+    coef_p, s1_p = dk.rng_expand_plain(*_cpu((flags, seed)))
+    assert torch.equal(coef.cpu().view(torch.int32), coef_p.view(torch.int32))
+    assert torch.equal(s1.cpu(), s1_p)
+
+
+def test_rate_paths_on_card(dev):
+    """bisect: (ceil(log2 P) + 2, same, ceil(log2 P) + 1, 1) walks a block
+    step; use_pallas="off": no kernel launched, and the kernels' bytes
+    and decoded PCM."""
+    t = 2
+    x = torch.from_numpy(make_corpus(13, t, N))
+    bcfg = CodecConfig(rate_hz=44100, n_chan=C, block_size=N, rate_search="bisect")
+    ek.reset_launch_counts()
+    bis, _ = batch_encode(x, bcfg, "cbr", rate_kbps=128.0, device=dev)
+    torch.cuda.synchronize()
+    assert ek.launch_counts() == {"p1": 11 * t, "p2": 11 * t, "p3_size": 10 * t,
+                                  "p3_materialize": t}
+    assert int(bis.size_bits.max()) <= int(cbr_bit_budget(CFG, 128.0))
+    lad, _ = batch_encode(x, CFG, "cbr", rate_kbps=128.0, device=dev)
+    streams, _, win, _ = pack_streams(lad)
+    dec = batch_decode(streams, t, win, CFG, device=dev)
+    for cfg, ref in ((CFG, lad), (bcfg, bis)):
+        off = dataclasses.replace(cfg, use_pallas="off")
+        ek.reset_launch_counts()
+        dk.reset_launch_counts()
+        got, _ = batch_encode(x, off, "cbr", rate_kbps=128.0, device=dev)
+        got_dec = batch_decode(streams, t, win, off, device=dev)
+        torch.cuda.synchronize()
+        assert not any({**ek.launch_counts(), **dk.launch_counts()}.values())
+        assert torch.equal(got.data, ref.data) and torch.equal(got.size_bits, ref.size_bits)
+        assert all(torch.equal(a, b_) for a, b_ in zip(got_dec, dec))
+
+
+def test_pipelined_decoder_on_card(dev):
+    t = 8
+    x = make_corpus(4, t, N)[3]
+    out, _ = encode_stream(x, CFG, "cbr", rate_kbps=128.0)
+    streams, _, win, _ = pack_streams(type(out)(*(v[None] for v in out)))
+    pcm, bits, corrupt, (off, carry) = decode_stream(streams[0], t, win, CFG)
+    dk.reset_launch_counts()
+    ppcm, pbits, pcorrupt, (poff, pcarry) = decode_stream_pipelined(streams[0], t, win, CFG)
+    torch.cuda.synchronize()
+    assert dk.launch_counts() == {"fsm": 0, "fsm_place": t, "rng_expand": 1, "rng": 0}
+    assert torch.equal(pbits, bits) and torch.equal(pcorrupt, corrupt) and torch.equal(poff, off)
+    assert torch.equal(pcarry.rng, carry.rng) and torch.equal(pcarry.prev_last_ss,
+                                                              carry.prev_last_ss)
+    ref = pcm.double()
+    assert float(torch.sqrt((ppcm.double() - ref).var() / ref.var())) < 1e-5
+    assert float((pcarry.lap - carry.lap).abs().max()) <= 1e-5

@@ -153,12 +153,18 @@ def _windows(enc, kind):
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_fsm_matches_ulcx(enc, kind):
+    """Records by field (ulcx's word holds the start in 15 bits, the
+    port's in 23), everything else word for word."""
     windows, n = _windows(enc, kind)
     want, got = ulcx_fsm(windows, n)
     for name, w, g in zip(("rec", "code", "consumed", "corrupt"), want, got):
         assert g.dtype == torch.int32
-        np.testing.assert_array_equal(g.numpy().T if g.dim() == 2 else g.numpy(), w,
-                                      err_msg=name)
+        g = g.numpy().T if g.dim() == 2 else g.numpy()
+        if name == "rec":
+            np.testing.assert_array_equal(g & dk.REC_START_MASK, w & 0x7FFF, err_msg="start")
+            np.testing.assert_array_equal(g >> dk.REC_START_BITS, w >> 15, err_msg="type")
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=name)
     corrupt = want[3]
     if kind == "real":
         assert not corrupt.any()
@@ -248,15 +254,15 @@ def _step_words(wc, tokens, p_tot, n):
                        np.where(kind == dk.REC_COEF, pos + 1, se))
         run_bad = end > se
         emit = (kind != 0) & ~run_bad
-        rec[t] = np.where(emit, pos | (kind << 15), 0)
+        rec[t] = np.where(emit, pos | (kind << dk.REC_START_BITS), 0)
         regs = (w & (0xF << 27)) | (x << 16) | (qi << 8) | r0
         # the helpers' part: code and expansion words from the staged pair
-        kind_h, r0_h, x_h = rec[t] >> 15, regs & 0xFF, (regs >> 16) & 15
+        kind_h, r0_h, x_h = rec[t] >> dk.REC_START_BITS, regs & 0xFF, (regs >> 16) & 15
         tail = kind_h == dk.REC_TAIL
         a = ((regs >> 27) & 15) + np.where(tail, r0_h >> 4, 0)
         dn = np.where(tail, ((r0_h & 0xF) << 4) | x_h, 0)
         code[t] = np.where(kind_h != 0, a | (dn << 5) | (((regs >> 8) & 31) << 13), 0)
-        flags[(rec[t] & 0x7FFF)[emit], lane[emit]] = (
+        flags[(rec[t] & dk.REC_START_MASK)[emit], lane[emit]] = (
             ((0xB3150 >> (kind_h * 4)) & 0xF) | (code[t] << 4))[emit]
         nxt = np.where(kind != 0, np.where(end >= p_tot, dk.M_DONE,
                                            np.where(end == se, dk.M_QUANT_START, dk.M_NORMAL)),
@@ -352,9 +358,11 @@ def test_rng_matches_ulcx(enc):
 
 
 def _served_positions():
-    """Every P = n_chan * block_size the decoder serves."""
-    return sorted({c * (256 << s) for s in range(8) for c in range(1, 256)
-                   if c * (256 << s) <= dk.MAX_P})
+    """Every P = n_chan * block_size <= 32768, and P past it up to the
+    top of the envelope, 255 channels x 32768 (the decoder serves every
+    P)."""
+    small = {c * (256 << s) for s in range(8) for c in range(1, 256) if c * (256 << s) <= 32768}
+    return sorted(small | {2 * 32768, 3 * 32768, 40 * 4096, 255 * 32768})
 
 
 @pytest.mark.parametrize("b", [1, 13, 128, 512, 2048])

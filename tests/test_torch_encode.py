@@ -155,10 +155,7 @@ def test_scan_major_layout(x):
         assert torch.equal(u, v.transpose(0, 1))
 
 
-@pytest.mark.parametrize("change", [
-    {"use_pallas": "off"}, {"rate_search": "bisect"}, {"noise_run_window": "gap"},
-    {"n_chan": 32, "block_size": 2048}, {"block_size": 32768},  # P = 65,536
-])
+@pytest.mark.parametrize("change", [{"noise_run_window": "gap"}])
 def test_unported_settings_raise(change):
     cfg = TCodecConfig(**{**dict(rate_hz=44100, n_chan=C, block_size=N), **change})
     with pytest.raises(NotImplementedError, match="ROADMAP A.9"):

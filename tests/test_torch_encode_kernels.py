@@ -81,6 +81,15 @@ def _cands(x):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(x)[0, :, :B].T))
 
 
+def _port_state(state):
+    """ulcx's state word (next coded position 16 bits, 0xFFFF for none |
+    q << 16 | coded << 21; P <= 32768) -> the port's, field by field
+    (24 bits, NCP_MAX for none | q << 24 | coded << 29)."""
+    ncp = state & 0xFFFF
+    ncp = torch.where(ncp == 0xFFFF, ek.NCP_MAX, ncp)
+    return (ncp | (((state >> 16) & 0x1F) << 24) | (((state >> 21) & 1) << 29)).to(torch.int32)
+
+
 def _jax_p1(t, c, key, coef, aux):
     """ulcx's _p1 pallas_call alone (p12_call runs it fused with _p2)."""
     in_spec, _, _, chunk_spec, _, whole = pe3._specs(P)
@@ -127,13 +136,41 @@ def test_p1_p2_match_pallas(seed):
     s12 = ek.p1(pv["t"], pv["c"], pv["key"], pv["coef"], pv["aux"])
     _same(s12, ref["s12"])
     state = ek.p2(pv["t"], pv["c"], pv["key"], pv["thr"], pv["aux"], s12)
-    _same(state, ref["state"])
+    _same(state, _port_state(ref["state"]))
+
+
+
+@pytest.mark.parametrize("streams", [1, 3])
+@pytest.mark.parametrize("walk", ["p1", "p2", "p3_size", "p3_materialize"])
+def test_plain_walks_in_chunks_match_pallas(monkeypatch, walk, streams):
+    """Each plain walk runs the batch in chunks of streams (1, and 3 with
+    a ragged last chunk) when its working planes outgrow
+    PLAIN_CHUNK_BYTES, and gives what ulcx's kernel gives."""
+    _, pv, ref = _case(0)
+    entry = 8 * ((P - 1).bit_length() + 1) if walk == "p1" else ek.PLAIN_ENTRY_BYTES[walk]
+    rows = P + 1 if walk == "p1" else P
+    monkeypatch.setattr(ek, "PLAIN_CHUNK_BYTES", streams * rows * 8 * entry)
+    state = _port_state(ref["state"])
+    if walk == "p1":
+        _same(ek.p1_plain(pv["t"], pv["c"], pv["key"], pv["coef"], pv["aux"]), ref["s12"])
+    elif walk == "p2":
+        _same(ek.p2_plain(pv["t"], pv["c"], pv["key"], pv["thr"], pv["aux"], ref["s12"]), state)
+    elif walk == "p3_size":
+        _same(ek.p3_size_plain(pv["thr"], pv["aux"], state), ref["bits_size"])
+    else:
+        n_words = 2 * P // 4
+        bits, words, freg, fwc = ek.p3_materialize_plain(
+            pv["coef"], pv["ampn"], pv["hfamp"], pv["hfmeta"], pv["aux"], state, pv["hdr"], n_words)
+        jbits, _, _, jfreg, jfwc = ref["mat"]
+        for got, want in ((bits, jbits), (freg, jfreg), (fwc, jfwc)):
+            _same(got, _cands(want))
+        np.testing.assert_array_equal(words.numpy(), _ref_words(ref["mat"], n_words))
 
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_p3_size_matches_pallas(seed):
     _, pv, ref = _case(seed)
-    bits = ek.p3_size(pv["thr"], pv["aux"], ref["state"])
+    bits = ek.p3_size(pv["thr"], pv["aux"], _port_state(ref["state"]))
     _same(bits, ref["bits_size"])
 
 
@@ -158,7 +195,8 @@ def _ref_words(mat, n_words):
 def test_p3_materialize_matches_pallas(seed, n_words):
     _, pv, ref = _case(seed)
     bits, words, freg, fwc = ek.p3_materialize(
-        pv["coef"], pv["ampn"], pv["hfamp"], pv["hfmeta"], pv["aux"], ref["state"], pv["hdr"],
+        pv["coef"], pv["ampn"], pv["hfamp"], pv["hfmeta"], pv["aux"], _port_state(ref["state"]),
+        pv["hdr"],
         n_words,
     )
     jbits, _, _, jfreg, jfwc = ref["mat"]
@@ -207,9 +245,11 @@ def test_cuda_wrappers_refuse_bad_inputs():
 
 
 def _served_positions():
-    """Every P = n_chan * block_size <= 32768 the kernel path serves."""
-    return sorted({c * (256 << s) for s in range(8) for c in range(1, 256)
-                   if c * (256 << s) <= 32768})
+    """Every P = n_chan * block_size <= 32768, and P past it up to the
+    top of the envelope, 255 channels x 32768 (the kernel path serves
+    every P)."""
+    small = {c * (256 << s) for s in range(8) for c in range(1, 256) if c * (256 << s) <= 32768}
+    return sorted(small | {2 * 32768, 3 * 32768, 40 * 4096, 255 * 32768})
 
 
 @pytest.mark.parametrize("b", [1, 13, 128, 512, 2048])

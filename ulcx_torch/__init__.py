@@ -16,10 +16,15 @@ each record's expansion word, then the RNG-expand kernel;
 ``csrc/decode_walks.cu``) -> ``codec.transform_batched.block_imdct_batched``
 -> inverse M/S. ``codec.encoder.encode_stream`` / ``encode_block`` and
 ``codec.decoder.decode_stream`` / ``decode_block`` code one stream as a
-batch of one. The entry points run on the card (``device="cuda"``) unless the caller asks
-for ``device="cpu"``; below them every function follows the device of
-its input tensors: on the CPU the kernels run their plain PyTorch
-versions, on a CUDA device the kernels.
+batch of one; ``codec.decoder.decode_stream_pipelined`` decodes it with
+only the state machine serial (``ops.rngjump`` gives every block its RNG
+state). Every P = n_chan * block_size the configuration admits is
+served, and so are ``rate_search="bisect"`` and ``use_pallas="off"``
+(the plain versions on any device). The entry points run on the card
+(``device="cuda"``) unless the caller asks for ``device="cpu"``; below
+them every function follows the device of its input tensors: on the CPU
+the kernels run their plain PyTorch versions, on a CUDA device the
+kernels.
 
 Nothing here imports jax or ``ulcx``: the port keeps its own copy of
 what it needs (``utils.config``, ``ops.patterns``, ``bitstream.tables``).

@@ -14,16 +14,17 @@ runs. Each kernel has
   dtype, shape and contiguity, allocates the outputs, launches on the
   current stream, and adds one to its ``launches`` counter;
 - a plain PyTorch version (``*_plain``) with the same signature: a
-  Python loop over tokens or positions, vectorized over streams. It is
-  the CPU path and the kernels' oracle on the card.
+  Python loop over tokens or positions, vectorized over streams, on
+  whatever device its inputs lie. It is the CPU path, the
+  ``use_pallas="off"`` path, and the kernels' oracle on the card.
 
 Layouts: token planes [T, B] and position planes [P, B], stream
 fastest; per-stream values [B]. RNG seeds are u32 values held as the
 int32 with the same bits; the plain versions step them in int64 masked
 to 32 bits, since torch has no logical right shift on int32.
 
-Field maps (P <= 32768):
-  rec         record start 15 bits | record type << 15 (0 where no record)
+Field maps (any P = n_chan * block_size <= 255 * 32768 < 2^23):
+  rec         record start 23 bits | record type << 23 (0 where no record)
   code        level a 5 bits | decay dn << 5 | quantizer qi << 13
   flags       (expansion) start bit 0 | draw record 1 | coded coefficient 2 |
               tail 3 | code << 4, set at record starts only
@@ -39,6 +40,7 @@ against its plain version.
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -74,7 +76,8 @@ REC_ZERO = 2
 REC_NOISE = 3
 REC_TAIL = 4
 
-MAX_P = 32768  # rec holds a record start in 15 bits
+REC_START_BITS = 23  # rec holds a record start in 23 bits: P < 2^23
+REC_START_MASK = (1 << REC_START_BITS) - 1
 # Launch geometry of the RNG kernels (csrc/decode_walks.cu): a CTA walks
 # RNG_STREAMS streams, one lane of warp 0 each, while RNG_HELPER_WARPS
 # warps fill a ring of STAGES shared-memory stages of RNG_CHUNK
@@ -326,7 +329,7 @@ def fsm_plain(wc, tokens, p_tot: int, n: int):
         a = tab["a0"][idx] + torch.where(kind == REC_TAIL, r0 >> 4, 0)
         dn = torch.where(kind == REC_TAIL, ((r0 & 0xF) << 4) | x, 0)
         emit = emit & active
-        rec[t] = torch.where(emit, torch.clamp(pos, max=0x7FFF) | (kind << 15), 0).to(_I32)
+        rec[t] = torch.where(emit, pos | (kind << REC_START_BITS), 0).to(_I32)
         code[t] = torch.where(emit, a | (dn << 5) | (qi << 13), 0).to(_I32)
         r0_op = tab["r0"][idx]
         new_r0 = torch.where(r0_op == 1, x, torch.where(r0_op == 2, ((r0 << 4) | x) & 0xFF, r0))
@@ -346,7 +349,7 @@ def place_records(rec: torch.Tensor, code: torch.Tensor, p_tot: int) -> torch.Te
     strictly increase within a stream, so no two records share a
     position."""
     b = rec.shape[1]
-    rtype = (rec >> 15) & 0x7
+    rtype = (rec >> REC_START_BITS) & 0x7
     emit = rtype != REC_NONE
     draw = (rtype == REC_NOISE) | (rtype == REC_TAIL)
     meta = torch.where(
@@ -356,7 +359,7 @@ def place_records(rec: torch.Tensor, code: torch.Tensor, p_tot: int) -> torch.Te
         0,
     ).to(_I32)
     # tokens without a record write 0 into a drop row at P
-    row = torch.where(emit, rec & 0x7FFF, p_tot).long()
+    row = torch.where(emit, rec & REC_START_MASK, p_tot).long()
     flat = torch.zeros(((p_tot + 1) * b,), dtype=_I32, device=rec.device)
     col = torch.arange(b, device=rec.device)
     flat.scatter_(0, (row * b + col).reshape(-1), meta.reshape(-1))
@@ -460,8 +463,6 @@ def _fsm_args(wc, tokens, p_tot: int, n: int):
 def fsm(wc, tokens, p_tot: int, n: int):
     """Nybble-syntax state machine (replaces pallas_decode._fsm_kernel)
     -> (rec, code, consumed, corrupt); see ``fsm_plain``."""
-    if p_tot > MAX_P:
-        raise NotImplementedError(f"P = {p_tot} > {MAX_P} is not ported: ROADMAP A.9")
     if _on_cpu(wc, tokens):
         return fsm_plain(wc, tokens, p_tot, n)
     t_len, b, ins, consumed, corrupt = _fsm_args(wc, tokens, p_tot, n)
@@ -479,8 +480,6 @@ def fsm_place(wc, tokens, p_tot: int, n: int):
     pallas_decode._fsm_kernel together with fast_decode's
     records_to_flags) -> (flags [P, B], consumed, corrupt); see
     ``fsm_place_plain``."""
-    if p_tot > MAX_P:
-        raise NotImplementedError(f"P = {p_tot} > {MAX_P} is not ported: ROADMAP A.9")
     if _on_cpu(wc, tokens):
         return fsm_place_plain(wc, tokens, p_tot, n)
     t_len, b, ins, consumed, corrupt = _fsm_args(wc, tokens, p_tot, n)
@@ -529,6 +528,19 @@ def rng(flags, seed):
 KERNELS = (fsm, fsm_place, rng_expand, rng)
 for _fn in KERNELS:
     _fn.launches = 0
+
+
+class Walks(NamedTuple):
+    """One implementation of each decode walk, called alike."""
+
+    fsm: Callable
+    fsm_place: Callable
+    rng_expand: Callable
+    rng: Callable
+
+
+KERNEL_WALKS = Walks(*KERNELS)  # the kernels (a CPU tensor runs the plain version)
+PLAIN_WALKS = Walks(fsm_plain, fsm_place_plain, rng_expand_plain, rng_plain)  # on any device
 
 
 def reset_launch_counts() -> None:

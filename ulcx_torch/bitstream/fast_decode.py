@@ -55,12 +55,21 @@ def _header_and_tokens(windows: torch.Tensor):
     return wc, hdr, tokens
 
 
+def walks(cfg: CodecConfig) -> dk.Walks:
+    """The walks ``cfg`` asks for: the kernels (whose wrappers run the
+    plain versions on CPU tensors and launch the kernels on CUDA ones),
+    or with ``use_pallas="off"`` the plain versions wherever the tensors
+    lie, launching no kernel."""
+    return dk.PLAIN_WALKS if cfg.use_pallas == "off" else dk.KERNEL_WALKS
+
+
 def fsm_records(windows: torch.Tensor, cfg: CodecConfig):
     """FSM pass only: windows [B, W] uint8 at block starts ->
     (rec [B, R], code [B, R], wc [B], hdr [B], consumed [B],
     corrupt [B]), all i32, R = 2W - 2."""
     wc, hdr, tokens = _header_and_tokens(windows)
-    rec, code, consumed, corrupt = dk.fsm(wc, tokens, cfg.block_size * cfg.n_chan, cfg.block_size)
+    rec, code, consumed, corrupt = walks(cfg).fsm(wc, tokens, cfg.block_size * cfg.n_chan,
+                                                  cfg.block_size)
     return rec.T.contiguous(), code.T.contiguous(), wc, hdr, consumed, corrupt
 
 
@@ -79,15 +88,27 @@ def expand_coefs(flags: torch.Tensor, rng_state: torch.Tensor, p_tot: int):
     return coef.T.contiguous(), seed
 
 
+def draw_counts(flags: torch.Tensor) -> torch.Tensor:
+    """flags [B, P] from ``records_to_flags`` (or the placing FSM's,
+    transposed) -> [B] int64: each stream's RNG draw positions, exactly
+    as the RNG walk latches them (a draw record's region runs to the
+    next record start, the last one's to the plane's end, which is how a
+    corrupt or truncated block behaves too). The RNG-expand kernel steps
+    the state once per draw position, so its new state is the old one
+    jumped this many steps (``ops.rngjump.jump``)."""
+    return (dk.rng_flags(flags.T) & 1).sum(0)
+
+
 def decode_block_fast(windows: torch.Tensor, rng_state: torch.Tensor, cfg: CodecConfig):
     """windows [B, W] uint8 at block starts; rng_state [B] i32 (u32
     bits). Returns (coefs [B, C, N], window_ctrl [B], bits [B],
     corrupt [B] bool, new rng state [B]); a corrupt block's
     coefficients are 0."""
     n, c = cfg.block_size, cfg.n_chan
+    w = walks(cfg)
     wc, hdr, tokens = _header_and_tokens(windows)
-    flags, consumed, corrupt = dk.fsm_place(wc, tokens, n * c, n)
-    coef, new_seed = dk.rng_expand(flags, rng_state)
+    flags, consumed, corrupt = w.fsm_place(wc, tokens, n * c, n)
+    coef, new_seed = w.rng_expand(flags, rng_state)
     bad = corrupt == 1
     coefs = torch.where(bad[None], 0.0, coef).T.contiguous().reshape(-1, c, n)
     return coefs, wc, 4 * (hdr + consumed), bad, new_seed

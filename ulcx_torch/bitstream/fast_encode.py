@@ -6,7 +6,11 @@ noise and HF-extension decisions, monotone importance keys); one stable
 sort of the keys gives every candidate count its keep threshold
 (``_tc_of``); the seeded ladder (``_bracket_search``) narrows the
 coefficient count with size-only rounds, and the final round prices
-and packs eight candidates at once (``search_materialize_fast``).
+and packs eight candidates at once (``search_materialize_fast``). With
+``rate_search="bisect"`` the reference's bisection (``_bisect``) prices
+one count a round and the count it finds is then materialized.
+``walks(cfg)`` picks the walks every function here runs: the kernels,
+or with ``use_pallas="off"`` their plain versions on any device.
 
 What the TPU layout needed and this port does not: padding batches to
 128 lanes, one-hot matrix products standing in for table gathers (here
@@ -242,11 +246,19 @@ def _tc_of(pl: Planes, nn: torch.Tensor):
     return t, c
 
 
-def _state(pl: Planes, nn: torch.Tensor) -> torch.Tensor:
+def walks(cfg: CodecConfig) -> ek.Walks:
+    """The walks ``cfg`` asks for: the kernels (whose wrappers run the
+    plain versions on CPU tensors and launch the kernels on CUDA ones),
+    or with ``use_pallas="off"`` the plain versions wherever the tensors
+    lie, launching no kernel."""
+    return ek.PLAIN_WALKS if cfg.use_pallas == "off" else ek.KERNEL_WALKS
+
+
+def _state(pl: Planes, nn: torch.Tensor, w: ek.Walks) -> torch.Tensor:
     """Phases 1 and 2 for candidate counts nn [B, 8] -> state plane."""
     t, c = _tc_of(pl, nn.to(_I32))
-    s12 = ek.p1(t, c, pl.key, pl.coef, pl.aux)
-    return ek.p2(t, c, pl.key, pl.thr, pl.aux, s12)
+    s12 = w.p1(t, c, pl.key, pl.coef, pl.aux)
+    return w.p2(t, c, pl.key, pl.thr, pl.aux, s12)
 
 
 def _sizes_of(bits: torch.Tensor, n_header: torch.Tensor) -> torch.Tensor:
@@ -254,16 +266,21 @@ def _sizes_of(bits: torch.Tensor, n_header: torch.Tensor) -> torch.Tensor:
     return (4 * (bits + n_header[:, None]) + 7) & ~7
 
 
-def round_sizes(pl: Planes, n_header, nn) -> torch.Tensor:
+def round_sizes(pl: Planes, n_header, nn, w: ek.Walks = ek.KERNEL_WALKS) -> torch.Tensor:
     """One size-only round: byte-aligned sizes [B, 8] of candidates nn."""
-    return _sizes_of(ek.p3_size(pl.thr, pl.aux, _state(pl, nn)), n_header)
+    return _sizes_of(w.p3_size(pl.thr, pl.aux, _state(pl, nn, w)), n_header)
 
 
-def _materialize(pl: Planes, nn, max_bytes: int):
+def _materialize(pl: Planes, nn, max_bytes: int, w: ek.Walks):
     """Final round: (bits, words, freg, fwc) for candidates nn [B, 8]."""
-    return ek.p3_materialize(
-        pl.coef, pl.ampn, pl.hfamp, pl.hfmeta, pl.aux, _state(pl, nn), pl.hdr, max_bytes // 4
+    return w.p3_materialize(
+        pl.coef, pl.ampn, pl.hfamp, pl.hfmeta, pl.aux, _state(pl, nn, w), pl.hdr, max_bytes // 4
     )
+
+
+def _every_slot(n: torch.Tensor) -> torch.Tensor:
+    """One count per stream [B] -> the same count in all eight slots."""
+    return n.to(_I32)[:, None].expand(-1, N_CAND).contiguous()
 
 
 def _words_to_bytes(words: torch.Tensor) -> torch.Tensor:
@@ -286,20 +303,32 @@ def _rounds(p_tot: int) -> int:
 _SEED_W = (-51, -31, -18, -9, -4, 0, 5, 15)
 
 
-def _seed_plan(rounds: int):
-    """(classic size rounds, use the seeded round) before the final round."""
-    if rounds - 1 < 2:
+# Largest P the seeded plan serves: ulcx's kernel path (whose plan it is)
+# stops here. Above it ulcx searches with its exact classic ladder, and so
+# does the port: the seeded round assumes the first round found a
+# feasible count, and where it found none (a budget below n_nz / 8
+# coefficients' worth: 32 channels x bs2048 at 128 kbps) the final round
+# landed up to 10 % under the budget.
+SEEDED_MAX_P = 32768
+
+
+def _seed_plan(rounds: int, seeded: bool = True):
+    """(classic size rounds, use the seeded round) before the final round:
+    one classic round and the seeded one, or with ``seeded`` false (or
+    too few rounds) the classic ladder's rounds - 1, which leave the
+    final round a bracket of at most 8 counts."""
+    if rounds - 1 < 2 or not seeded:
         return rounds - 1, False
     return 1, True
 
 
-def _bracket_search(size_fn, n_nz, budget, rounds: int):
+def _bracket_search(size_fn, n_nz, budget, rounds: int, seeded: bool = True):
     """Classic + interp-seeded ladder rounds over candidates [B, 8].
     Returns (lo, hi) [B]: the crossing bracketed, lo the best
     known-feasible count (or 0). All arithmetic is int32."""
     k = N_CAND
     dev = n_nz.device
-    classic, seeded = _seed_plan(rounds)
+    classic, seeded = _seed_plan(rounds, seeded)
     budget = budget.to(_I32)
     karr1 = torch.arange(1, k + 1, dtype=_I32, device=dev)[None]
     jidx = torch.arange(k, dtype=_I32, device=dev)[None]
@@ -354,34 +383,61 @@ def _final_cands(lo, hi):
     return torch.minimum(cands, hi_c[:, None])
 
 
+def _bisect(size_fn, n_nz, budget, p_tot: int):
+    """The reference's bisection (ulcEncoder.c:98-115), step for step as
+    ``ulcx.codec.encoder._cbr_search``: ceil(log2 P) + 1 rounds, each
+    pricing one count per stream (``size_fn``: counts [B] -> sizes [B]),
+    a stream's bracket frozen once it is done. Returns the count [B]."""
+    n_iter = int(math.ceil(math.log2(p_tot))) + 1
+    lo = torch.zeros_like(n_nz, dtype=_I32)
+    hi = n_nz.to(_I32)
+    done = ~(lo < hi)
+    for _ in range(n_iter):
+        n = (lo + hi) // 2
+        size = size_fn(n)
+        eq = size == budget
+        lo2 = torch.where(eq, n, torch.where(size < budget, n, lo))
+        hi2 = torch.where(eq, hi, torch.where(size > budget, n - 1, hi))
+        done2 = done | eq | (lo2 >= hi2 - 1)
+        lo = torch.where(done, lo, lo2)
+        hi = torch.where(done, hi, hi2)
+        done = done | done2
+    return lo
+
+
 def total_sizes(fb: FastBlockData, nout: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
     """Byte-aligned block sizes in bits for candidate counts nout [B, 8]."""
-    return round_sizes(make_planes(fb), fb.n_header, nout.to(_I32))
+    return round_sizes(make_planes(fb), fb.n_header, nout.to(_I32), walks(cfg))
 
 
 def materialize_fast(fb: FastBlockData, n_out, cfg: CodecConfig, max_bytes: int):
     """Byte streams for chosen counts n_out [B]. Returns (size_bits [B],
     bytes [B, max_bytes])."""
-    pl = make_planes(fb)
-    nn = n_out.to(_I32)[:, None].expand(-1, N_CAND).contiguous()
-    bits, words, _, _ = _materialize(pl, nn, max_bytes)
+    bits, words, _, _ = _materialize(make_planes(fb), _every_slot(n_out), max_bytes, walks(cfg))
     size_bits = _sizes_of(bits[:, :1], fb.n_header)[:, 0]
     return size_bits, _words_to_bytes(words[:, 0])
 
 
 def search_materialize_fast(fb: FastBlockData, n_nz, budget, cfg: CodecConfig, max_bytes: int):
-    """CBR/ABR: the seeded ladder, with the final round fused into
-    materialization (every candidate is priced and packed; each stream
-    keeps its best feasible one). Returns (n_out [B], size_bits [B],
-    bytes [B, max_bytes])."""
+    """CBR/ABR: the seeded ladder (above SEEDED_MAX_P the classic one),
+    with the final round fused into materialization (every candidate is
+    priced and packed; each stream keeps its best feasible one); or,
+    with ``rate_search="bisect"``, the
+    reference's bisection, then the count it found materialized.
+    Returns (n_out [B], size_bits [B], bytes [B, max_bytes])."""
     b, p_tot = fb.coef.shape
     pl = make_planes(fb)
+    w = walks(cfg)
     budget = budget.to(_I32)
-    lo, hi = _bracket_search(
-        lambda nn: round_sizes(pl, fb.n_header, nn), n_nz.to(_I32), budget, _rounds(p_tot)
-    )
+    if cfg.rate_search == "bisect":
+        n_out = _bisect(lambda n: round_sizes(pl, fb.n_header, _every_slot(n), w)[:, 0],
+                        n_nz, budget, p_tot)
+        bits, words, _, _ = _materialize(pl, _every_slot(n_out), max_bytes, w)
+        return n_out, _sizes_of(bits[:, :1], fb.n_header)[:, 0], _words_to_bytes(words[:, 0])
+    lo, hi = _bracket_search(lambda nn: round_sizes(pl, fb.n_header, nn, w), n_nz.to(_I32),
+                             budget, _rounds(p_tot), seeded=p_tot <= SEEDED_MAX_P)
     cands_c = _final_cands(lo, hi)
-    bits, words, _, _ = _materialize(pl, cands_c, max_bytes)
+    bits, words, _, _ = _materialize(pl, cands_c, max_bytes, w)
     sizes = _sizes_of(bits, fb.n_header)
     feas = sizes <= budget[:, None]
     feas[:, 0] = True  # candidate 0 = lo, always a fallback

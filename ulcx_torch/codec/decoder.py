@@ -10,7 +10,10 @@ and ``decode_block`` decode one stream as a batch of one, and
 ``decode_stream`` takes and returns ``(offset, carry)`` so that a stream
 continues call after call; ``decoder_carry_from_numpy`` and
 ``decoder_carry_to_numpy`` move that carry to and from ``ulcx``'s.
-``decode_stream_pipelined`` is later work (ROADMAP A.9).
+``decode_stream_pipelined`` decodes one stream with the same interface
+and results, keeping only the state machine serial: it resolves every
+block's start first, then expands, transforms and laps all the blocks
+at once.
 """
 
 from __future__ import annotations
@@ -21,9 +24,16 @@ import numpy as np
 import torch
 
 from ulcx_torch.bitstream.decode_kernels import SEED
-from ulcx_torch.bitstream.fast_decode import bytes_to_nybbles, decode_block_fast  # noqa: F401
-from ulcx_torch.codec.transform_batched import block_imdct_batched
-from ulcx_torch.utils.config import CodecConfig, check_decode_supported
+from ulcx_torch.bitstream.fast_decode import (  # noqa: F401
+    _header_and_tokens,
+    bytes_to_nybbles,
+    decode_block_fast,
+    draw_counts,
+    walks,
+)
+from ulcx_torch.codec.transform_batched import block_imdct_batched, last_subblock_size
+from ulcx_torch.ops.rngjump import jump
+from ulcx_torch.utils.config import CodecConfig
 from ulcx_torch.utils.device import on_device
 
 
@@ -77,22 +87,33 @@ def decoder_carry_to_numpy(carry: DecoderCarry) -> DecoderCarry:
     )
 
 
+def _window_span(streams: torch.Tensor, window_bytes: int) -> torch.Tensor:
+    """A window's byte offsets [window_bytes], once the window is checked
+    to fit the streams [B, S]."""
+    if window_bytes > streams.shape[1]:
+        raise ValueError(f"window of {window_bytes} bytes exceeds the {streams.shape[1]}-byte "
+                         "streams")
+    return torch.arange(window_bytes, device=streams.device)
+
+
+def _windows(streams: torch.Tensor, offset: torch.Tensor, span: torch.Tensor) -> torch.Tensor:
+    """Each stream's window [B, W] at its byte offset [B] (``span`` from
+    ``_window_span``); a start past S - W is clamped there."""
+    start = torch.clamp(offset, max=streams.shape[1] - span.shape[0])
+    return torch.gather(streams, 1, start[:, None] + span)
+
+
 def _decode_blocks(streams: torch.Tensor, n_blocks: int, window_bytes: int, cfg: CodecConfig,
                    offset: torch.Tensor, carry: DecoderCarry):
     """The block loop: ``n_blocks`` blocks of streams [B, S] from byte
     ``offset`` [B] int64 and ``carry``. Returns (pcm [B, n_blocks, C, N],
     bits, corrupt [B, n_blocks], (offset, carry) after the last block)."""
-    check_decode_supported(cfg)
-    s_len = streams.shape[1]
-    if window_bytes > s_len:
-        raise ValueError(f"window of {window_bytes} bytes exceeds the {s_len}-byte streams")
     lap, prev_ss, seed = carry
-    span = torch.arange(window_bytes, device=streams.device)
+    span = _window_span(streams, window_bytes)
     pcms, bits_all, corrupt_all = [], [], []
     for _ in range(n_blocks):
-        start = torch.clamp(offset, max=s_len - window_bytes)
-        windows = torch.gather(streams, 1, start[:, None] + span)
-        coefs, wc, bits, corrupt, seed = decode_block_fast(windows, seed, cfg)
+        coefs, wc, bits, corrupt, seed = decode_block_fast(_windows(streams, offset, span), seed,
+                                                           cfg)
         pcm, lap, prev_ss = block_imdct_batched(coefs, wc, lap, prev_ss, cfg)
         pcms.append(inverse_ms(pcm))
         bits_all.append(bits)
@@ -125,6 +146,16 @@ def decode_stream(stream, n_blocks: int, window_bytes: int, cfg: CodecConfig, of
     [n_blocks], (offset, carry)): the byte offset (a 0-d int64 tensor)
     and the carry (no batch axis) after the last block; feed them back
     in to continue the stream."""
+    stream, offset, carry = _one_stream(stream, offset, carry, cfg, device)
+    pcm, bits, corrupt, (offset, carry) = _decode_blocks(
+        stream[None], n_blocks, window_bytes, cfg, offset, carry)
+    return pcm[0], bits[0], corrupt[0], (offset[0], DecoderCarry(*(x[0] for x in carry)))
+
+
+def _one_stream(stream, offset, carry, cfg: CodecConfig, device):
+    """One stream's (stream on ``device``, offset [1] int64, carry with a
+    batch axis of one), from the caller's stream, offset (None: 0) and
+    carry (None: a stream's start)."""
     stream = on_device(stream, device)
     dev = stream.device
     if offset is None:
@@ -134,9 +165,60 @@ def decode_stream(stream, n_blocks: int, window_bytes: int, cfg: CodecConfig, of
         carry = DecoderCarry.init(cfg, 1, dev)
     else:
         carry = DecoderCarry(*(x.to(dev)[None] for x in carry))
-    pcm, bits, corrupt, (offset, carry) = _decode_blocks(
-        stream[None], n_blocks, window_bytes, cfg, offset, carry)
-    return pcm[0], bits[0], corrupt[0], (offset[0], DecoderCarry(*(x[0] for x in carry)))
+    return stream, offset, carry
+
+
+def decode_stream_pipelined(stream, n_blocks: int, window_bytes: int, cfg: CodecConfig,
+                            offset=None, carry: DecoderCarry | None = None, device="cuda"):
+    """``decode_stream`` with only the state machine serial: the same
+    interface and results (bits, corrupt flags, offset and RNG state
+    exactly; PCM and lap to float rounding, the transforms summing over
+    a batch of T blocks instead of one).
+
+    A block depends on the blocks before it in three ways, and each is
+    resolved ahead of the batched work (``ulcx.codec.decoder.
+    decode_stream_pipelined``):
+      - its start: the state machine alone walks the blocks in order
+        (one placing-FSM launch a block at a batch of one, the offset a
+        device tensor), which also gives every block's expansion flags;
+      - its RNG state: the stream-global xorshift32 steps once per draw
+        position, so the draw counts of the blocks before (exclusive
+        prefix sums of ``fast_decode.draw_counts``) jump the entry state
+        to each block's (``ops.rngjump.jump``); then one RNG-expand
+        launch expands all T blocks, a corrupt block's coefficients 0;
+      - its lap: a block's new lap depends on its own synthesis only, so
+        one inverse transform from zero laps gives every lap, and a
+        second, with the laps shifted by one block, the PCM; then M/S.
+    Nothing synchronises with the host."""
+    stream, offset, carry = _one_stream(stream, offset, carry, cfg, device)
+    n, c = cfg.block_size, cfg.n_chan
+    w = walks(cfg)
+    span = _window_span(stream[None], window_bytes)
+    flags, wcs, bits, corrupt = [], [], [], []
+    for _ in range(n_blocks):
+        wc, hdr, tokens = _header_and_tokens(_windows(stream[None], offset, span))
+        fl, consumed, bad = w.fsm_place(wc, tokens, n * c, n)
+        b = 4 * (hdr + consumed)
+        offset = offset + (b + 7) // 8
+        flags.append(fl)
+        wcs.append(wc)
+        bits.append(b)
+        corrupt.append(bad == 1)
+    flags = torch.cat(flags, 1)  # [P, T]
+    wc, bits, corrupt = torch.cat(wcs), torch.cat(bits), torch.cat(corrupt)
+
+    draws = draw_counts(flags.T)
+    seeds = jump(carry.rng.expand(n_blocks), torch.cumsum(draws, 0) - draws)
+    coef, seed_after = w.rng_expand(flags, seeds)
+    coefs = torch.where(corrupt[None], 0.0, coef).T.contiguous().reshape(n_blocks, c, n)
+
+    last_ss = last_subblock_size(wc, cfg)
+    prev_ss = torch.cat([carry.prev_last_ss, last_ss[:-1]])
+    zero_lap = torch.zeros((n_blocks, c, n // 2), dtype=torch.float32, device=stream.device)
+    _, new_lap, _ = block_imdct_batched(coefs, wc, zero_lap, prev_ss, cfg)
+    pcm, _, _ = block_imdct_batched(coefs, wc, torch.cat([carry.lap, new_lap[:-1]]), prev_ss, cfg)
+    carry = DecoderCarry(new_lap[-1], last_ss[-1], seed_after[-1])
+    return inverse_ms(pcm), bits, corrupt, (offset[0], carry)
 
 
 def decode_block(window: torch.Tensor, carry: DecoderCarry, cfg: CodecConfig):
@@ -144,7 +226,6 @@ def decode_block(window: torch.Tensor, carry: DecoderCarry, cfg: CodecConfig):
     block's boundary (W at least the largest block's bytes). ``carry``
     has no batch axis. Returns (pcm [C, N], new carry, bits consumed,
     corrupt), computed where ``window`` lies."""
-    check_decode_supported(cfg)
     coefs, wc, bits, corrupt, seed = decode_block_fast(window[None], carry.rng[None], cfg)
     pcm, lap, prev_ss = block_imdct_batched(coefs, wc, carry.lap[None], carry.prev_last_ss[None],
                                             cfg)

@@ -179,6 +179,15 @@ def _next_active(act, order, ki: int):
     return torch.argmin(torch.where(later, order, 1 << 20), dim=-1)
 
 
+def last_subblock_size(window_ctrl, cfg: CodecConfig) -> torch.Tensor:
+    """[...] int32: the size of each block's last subblock, which the next
+    block's overlap sees (reference ulcDecoder.c:233-239). It depends on
+    the window control alone, so a stream's lap chain can be laid out
+    before its blocks are synthesized (``decoder.decode_stream_pipelined``)."""
+    t = device_tables(cfg.block_size, window_ctrl.device)
+    return (cfg.block_size >> t["c_shift"][t["last"][(window_ctrl >> 4).long()]]).to(torch.int32)
+
+
 def block_imdct_batched(coefs, window_ctrl, lap, prev_last_ss, cfg: CodecConfig):
     """Batched inverse: coefs [B, C, N], window_ctrl [B], lap [B, C, N/2],
     prev_last_ss [B] -> (pcm [B, C, N], new_lap [B, C, N/2], last_ss [B]).

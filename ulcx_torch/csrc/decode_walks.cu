@@ -110,7 +110,10 @@ enum Rec { kRecNone = 0, kRecCoef, kRecZero, kRecNoise, kRecTail };
 constexpr float kFltMin = 0x1p-126f;  // smallest normal f32
 constexpr int kSyntaxWords = 16 * 16;
 constexpr int kNextEnds = 16 * 8;
-constexpr int kMaxP = 32768;  // a record word holds its start in 15 bits
+// A record word holds its start in 23 bits: P = n_chan * block_size <=
+// 255 * 32768 < 2^23.
+constexpr int kStartBits = 23;
+constexpr int kStartMask = (1 << kStartBits) - 1;
 
 // Shared memory of one FSM CTA: the syntax and next-end tables, then
 // kStages stages of a chunk's tokens and the walker's two words per
@@ -145,7 +148,7 @@ constexpr uint32_t kLevelField = 0xFu << 27;
 // tokens consumed (including the one that ends the block) and whether
 // the block is corrupt (a run past its segment, a bad quantizer token,
 // or no end within the T tokens). Where a token ends a record,
-//   !kPlace: out0 = rec[t, b] = start | kind << 15 and out1 = code[t, b]
+//   !kPlace: out0 = rec[t, b] = start | kind << 23 and out1 = code[t, b]
 //            = a | dn << 5 | qi << 13, rows of the helpers' stores (0
 //            where no record ends);
 //   kPlace:  out0 = flags[start, b] = 1 | draw << 1 | coded << 2 |
@@ -210,7 +213,7 @@ __global__ void __launch_bounds__(kMaxThreads)
           const int end = (w >> 15) & 1u ? pos + n_run : kind == kRecCoef ? pos + 1 : se;
           const bool run_bad = end > se;  // only a run can pass its segment
           const bool emit = kind != kRecNone && !run_bad;
-          rec_s[idx] = emit ? pos | (kind << 15) : 0;
+          rec_s[idx] = emit ? pos | (kind << kStartBits) : 0;
           regs_s[idx] = static_cast<int>(w & kLevelField) | (x << 16) | (qi << 8) | r0;
           int next = kind != kRecNone ? (end >= P ? kDone : end == se ? kQuantStart : kNormal)
                                       : static_cast<int>(w & 15u);
@@ -238,7 +241,7 @@ __global__ void __launch_bounds__(kMaxThreads)
         for (int e = h; e < (s.hi - s.lo) * ns; e += nh) {
           const int i = e / ns, j = e - i * ns;
           const int rec = rec_s[i * S + j], regs = regs_s[i * S + j];
-          const int kind = rec >> 15;
+          const int kind = rec >> kStartBits;
           int code = 0;
           if (kind != kRecNone) {
             const int r0 = regs & 0xFF, x = (regs >> 16) & 15;
@@ -250,7 +253,7 @@ __global__ void __launch_bounds__(kMaxThreads)
           if (kPlace) {
             // start | draw (noise, tail) | coded | tail, by record kind
             if (kind != kRecNone)
-              out0[static_cast<size_t>(rec & 0x7FFF) * B + b0 + j] =
+              out0[static_cast<size_t>(rec & kStartMask) * B + b0 + j] =
                   static_cast<int>((0xB3150u >> (kind * 4)) & 0xFu) | (code << 4);
           } else {
             const size_t g = static_cast<size_t>(s.lo + i) * B + b0 + j;
@@ -441,7 +444,7 @@ template <bool kPlace>
 int launch_fsm(const void* wc, const void* tokens, const void* next_end, const void* syntax,
                void* out0, void* out1, void* consumed, void* corrupt, int B, int T, int P, int N,
                int S, int L, int threads, int smem, void* stream) {
-  if (S < 1 || S > kWarp || N < 8 || (N & (N - 1)) || P < 1 || P > kMaxP)
+  if (S < 1 || S > kWarp || N < 8 || (N & (N - 1)) || P < 1 || P > kStartMask)
     return static_cast<int>(cudaErrorInvalidValue);
   static int allowed[kMaxDevices];
   const int rc = prepare_walk(fsm_kernel<kPlace>, allowed, L, threads, smem,

@@ -43,7 +43,7 @@
 //     shared-memory words everything that does not depend on the
 //     carried state (p1: |coef| with denormals flushed and the kept bit
 //     in its sign bit, plus the segment-start bit per stream; p2: kept,
-//     qi, split, thr & 63, p + segdelta; p3: the event class, run length
+//     qi, split, thr & 63, segdelta; p3: the event class, run length
 //     and count, segment and tail bits, and, when materializing, the
 //     coefficient and noise nybbles, whose three cq_unsigned square
 //     roots thereby leave the chain);
@@ -69,7 +69,10 @@
 
 namespace {
 
-constexpr int kSent = 1 << 20;   // "no position" sentinel (> any p)
+// Positions: P = n_chan * block_size <= 255 * 32768 < 2^23. The state
+// word keeps the next coded position in 24 bits, kNcpMax meaning none.
+constexpr int kSent = 1 << 24;          // "no position" sentinel (> any p)
+constexpr int kNcpMax = (1 << 24) - 1;  // kSent clamped into the state word
 // BuildQuantizer constants (reference ulcEncoder_Encode.c:50-87):
 // qi = clip(floor(A - log2(max)), 5, 31), A = 5 + log2(1.5)
 constexpr float kBqA = 0x1.657006p2f;
@@ -281,10 +284,12 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 // Reverse backfill: zone ends and each zone's quantizer; a kept
 // position is coded when q >= qmin(|coef|, 2.5) from the packed
-// threshold plane. Emits next_coded_pos (16b) | q << 16 | coded << 21.
+// threshold plane. Emits next_coded_pos (24 bits, kNcpMax for none) |
+// q << 24 | coded << 29.
 //
 // Pre-pass word: kept | (qi | split << 5) << 1 | (thr & 63) << 7 |
-// (p + segdelta) << 13 (p + segdelta < 2^17).
+// segdelta << 13 (a segment lies in one channel: segdelta <= 32768, so
+// the word takes 29 bits); the walker adds its p.
 __global__ void __launch_bounds__(kMaxThreads)
     p2_kernel(const int* __restrict__ t, const int* __restrict__ c, const int* __restrict__ key,
               const int* __restrict__ thr, const int* __restrict__ aux,
@@ -331,7 +336,7 @@ __global__ void __launch_bounds__(kMaxThreads)
           if (i > 0) wn = pp[(i - 1) * kWalkers + lane];
           const int p = s.lo + i;
           const bool kept = w & 1u;
-          if (kept && (nk >= kSent || nk_split == 1 || nk >= static_cast<int>(w >> 13)))
+          if (kept && (nk >= kSent || nk_split == 1 || nk >= p + static_cast<int>(w >> 13)))
             cur_qi = (w >> 1) & 0x1F;
           const bool coded = kept && cur_qi >= static_cast<int>((w >> 7) & 63);
           if (coded) {
@@ -339,7 +344,7 @@ __global__ void __launch_bounds__(kMaxThreads)
             ncp = p;
           }
           out[i * kWalkers + lane] =
-              min(max(ncp, 0), 0xFFFF) | (q_next << 16) | (static_cast<int>(coded) << 21);
+              min(max(ncp, 0), kNcpMax) | (q_next << 24) | (static_cast<int>(coded) << 29);
           if (kept) {
             nk = p;
             nk_split = (w >> 6) & 1;
@@ -361,11 +366,11 @@ __global__ void __launch_bounds__(kMaxThreads)
         for (int e = h; e < (s.hi - s.lo) * kWalkers; e += nh) {
           const int i = e / kWalkers, wl = e % kWalkers, j = wl / kCand;
           if (j >= ns) continue;
-          const int p = s.lo + i, x = i * kTile + j;
-          const bool kept = kept_at(key_s[x], tc_s[wl], tc_s[kWalkers + wl], p);
+          const int x = i * kTile + j;
+          const bool kept = kept_at(key_s[x], tc_s[wl], tc_s[kWalkers + wl], s.lo + i);
           pp[e] = static_cast<uint32_t>(kept) | (static_cast<uint32_t>(s12_s[e] & 0x3F) << 1) |
                   (static_cast<uint32_t>(thr_s[x] & 63) << 7) |
-                  (static_cast<uint32_t>(p + (aux_s[x] & 0xFFFF)) << 13);
+                  (static_cast<uint32_t>(aux_s[x] & 0xFFFF) << 13);
         }
       }
       if (k >= 2) {  // store chunk k - 2's state rows, 16 bytes a thread
@@ -454,9 +459,9 @@ __global__ void __launch_bounds__(kMaxThreads)
       const int ax = aux_s[x];
       const int segdelta = ax & 0xFFFF;
       const int srow = st_s[e];
-      const int ncp = srow & 0xFFFF;
-      const int qq = (srow >> 16) & 0x1F;
-      const bool is_code = (srow >> 21) & 1;
+      const int ncp = srow & kNcpMax;
+      const int qq = (srow >> 24) & 0x1F;
+      const bool is_code = (srow >> 29) & 1;
       const bool is_tail = (ncp - p) >= segdelta;
       const bool gp = !is_code && !is_tail;
       const int sq = qq - 5;

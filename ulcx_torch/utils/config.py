@@ -51,14 +51,15 @@ class CodecConfig:
     matmul_max_n: int = 2048
     # CBR/ABR rate search: "ladder" (candidates per round, exact under
     # monotone Size(n)) or "bisect" (the reference's sequential
-    # bisection; not ported, ROADMAP A.9).
+    # bisection, one count a round).
     rate_search: str = "ladder"
     # Noise-run amplitude window: "segment" (min(seg_end - pos, 527)
     # lines, candidate-independent) or "gap" (the reference's exact
-    # min(gap_len, 527); scan-only, not ported, ROADMAP A.9).
+    # min(gap_len, 527); scan-only, not ported, ROADMAP A.9e).
     noise_run_window: str = "segment"
-    # Bitstream kernels: "auto" and "on" both mean the kernels in the
-    # port; "off" is the scan path (not ported, ROADMAP A.9).
+    # Bitstream walks: "auto" and "on" both mean the kernels in the port,
+    # at every P; "off" runs their plain PyTorch versions on whatever
+    # device the tensors lie (the port's oracle path, slow on a card).
     use_pallas: str = "auto"
     # Fold the block axis T into the batch: only window control loops
     # over blocks, everything else runs once over B*T streams. Window
@@ -121,35 +122,11 @@ class CodecConfig:
 
 def check_supported(cfg: CodecConfig) -> None:
     """Raise NotImplementedError for encoder settings this port does not
-    serve yet, naming the ROADMAP item that will. The walks' words hold
-    a coded position in 16 bits, so P = n_chan * block_size <= 32768."""
-    if cfg.use_pallas == "off":
-        raise NotImplementedError(
-            "use_pallas='off' (the scan path) is not ported: ROADMAP A.9"
-        )
-    if cfg.rate_search == "bisect":
-        raise NotImplementedError(
-            "rate_search='bisect' is not ported: ROADMAP A.9"
-        )
+    serve yet, naming the ROADMAP item that will. Every P =
+    n_chan * block_size the dataclass admits is served (the walks'
+    words hold a position in 23-24 bits), and so are both rate searches
+    and all three ``use_pallas`` settings."""
     if cfg.noise_run_window == "gap":
         raise NotImplementedError(
-            "noise_run_window='gap' is not ported: ROADMAP A.9"
-        )
-    if cfg.n_chan * cfg.block_size > 32768:
-        raise NotImplementedError(
-            f"P = {cfg.n_chan * cfg.block_size} > 32768 is not ported: ROADMAP A.9"
-        )
-
-
-def check_decode_supported(cfg: CodecConfig) -> None:
-    """The decoder's counterpart of ``check_supported``: the kernel path
-    serves P = n_chan * block_size <= 32768 (a record start is 15 bits)."""
-    if cfg.use_pallas == "off":
-        raise NotImplementedError(
-            "use_pallas='off' (the scan decoder) is not ported: ROADMAP A.9"
-        )
-    if cfg.n_chan * cfg.block_size > 32768:
-        raise NotImplementedError(
-            f"P = {cfg.n_chan * cfg.block_size} > 32768 (the scan decoder) is not ported: "
-            "ROADMAP A.9"
+            "noise_run_window='gap' is not ported: ROADMAP A.9e"
         )
