@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's encode and decode paths on one CUDA card.
+"""Drive the PyTorch port's encode and decode paths and tools on one CUDA card.
 
     python3 chip_smoke.py        # from the repo root; one CUDA GPU, nvcc on the machine
 
@@ -97,7 +97,31 @@ Phases, each of which raises on failure:
     end to end within 1 % of the CPU's; ``use_pallas="off"`` on the
     card, with the ladder and with bisect: no kernel launched, bytes
     (and, decoding, PCM, bits and corrupt flags) identical to the
-    kernels'; the ladder and bisect encodes timed.
+    kernels'; the ladder and bisect encodes timed;
+15. gap window: ``noise_run_window="gap"`` at phase 4's shape (B=512,
+    T=8, CBR-128): launches exactly T x (4, 4, 0, 0) (the classic ladder;
+    both p3 walks run their plain gap mode on the card), every block
+    within its budget, a second run identical, the streams decoded with
+    phase 7's checks; prints the gap and segment encode realtime factors
+    and total sizes of this process; times the gap p3 walks on a block
+    step's planes beside the segment window's plain walks and kernels,
+    and holds them on 8 of its streams to the same walks on the CPU in
+    every (stream, candidate) whose noise codes the two devices' ``exp``
+    agree on;
+16. tools: four 30 s stereo PCM16 WAVs of ``bench.make_corpus``;
+    ``python -m ulcx_torch.tools.encode_tool`` by subprocess at CBR-128,
+    VBR -55 and ABR 128,0.5 (exit 0, the stats lines, the header fields,
+    the CBR budget), ``decode_tool`` of the CBR file to PCM16 and
+    FLOAT32 (FLOAT32 within 1e-5 relative of ``decode_stream`` of the
+    same bytes, PCM16 within one LSB of it converted, SNR over the
+    middle blocks against the input one block earlier above 12 dB), the
+    verify SKILL's five error paths with their messages and exit codes
+    (1, 1, 255, 255, 255); each tool again in process, timed (encode
+    bytes identical to the subprocess's); ``batch_tool`` over the four
+    files (headers, budgets, clean decodes); ``-profile:DIR`` writes a
+    trace; a checkpoint on the card (half the blocks, ``save_carry``,
+    ``load_carry``, the rest) gives one call's bytes. Prints whether the
+    native I/O library loaded and each tool's realtime factor.
 
 Each phase prints the seconds it took.
 
@@ -107,7 +131,7 @@ times at the main path's B=512, and its bound: the bytes of its inputs
 and outputs at that shape over the card's 3.35 TB/s (no PyTorch call
 computes any of these serial walks, so ``library_ms`` is null); beside
 them the times at P = 8192 (phase 10) and P = 65,536 (phase 13) and the
-launches on the other paths; the last
+launches on the other paths (the gap window's among them); the last
 is ``{"ok": true, "device": {...}}``. The script exits
 non-zero, printing neither, when there is no CUDA device or any phase
 fails. It imports nothing of JAX.
@@ -146,6 +170,10 @@ HUGE_PLAIN_B = 13  # phase 13: kernels against their plain versions (on the CPU)
 HUGE_COLS = tuple(range(HUGE_PLAIN_B)) + tuple(range(HUGE_B - 8, HUGE_B))  # and at B = 256 on
 # these streams: the first 13 and the last 8 (a whole tile of every kernel)
 RATE_BS, RATE_B, RATE_T = 256, 13, 2  # phase 14: the rate paths, stereo bs256
+GAP_PLAIN_B = 8  # phase 15: the gap p3 walks on the card and the CPU on 8 streams' planes
+TOOL_SECONDS, TOOL_FILES = 30, 4  # phase 16: seconds of audio a WAV, WAVs for the batch tool
+PROFILE_BLOCKS = 8  # phase 16: the -profile: run's WAV
+CKPT_T = 32  # phase 16: blocks encoded across a checkpoint
 PCM_RMS = 1e-5  # card vs CPU: float32 matrix products sum in another order
 MIN_SNR_DB = 12.0  # the corpus round-trips at ~16.5 dB at CBR-128; far below means broken
 SOURCE = "ulcx_torch/csrc/encode_walks.cu"
@@ -174,6 +202,9 @@ RAGGED_B, RAGGED_BS, RAGGED_CHAN = 13, 256, 3
 PER_BLOCK = {"p1": 3, "p2": 3, "p3_size": 2, "p3_materialize": 1}  # seeded ladder, P <= 32768
 HUGE_PER_BLOCK = {"p1": 6, "p2": 6, "p3_size": 5, "p3_materialize": 1}  # classic ladder, P = 65,536
 BISECT_PER_BLOCK = {"p1": 11, "p2": 11, "p3_size": 10, "p3_materialize": 1}  # bisect, P = 512
+# gap noise window at P = 4096: the classic ladder's 3 size rounds and the final
+# one launch p1 and p2; both p3 walks run their plain gap mode (no kernel)
+GAP_PER_BLOCK = {"p1": 4, "p2": 4, "p3_size": 0, "p3_materialize": 0}
 DEC_PER_BLOCK = {"fsm": 0, "fsm_place": 1, "rng_expand": 1, "rng": 0}
 TRUNCATED_BYTES = 48  # ~94 tokens, fewer than any block needs
 
@@ -1083,7 +1114,8 @@ def rate_paths(device, card):
     fb = fe.prepare_fast(blk, cfg)
     budget = cbr_bit_budget(cfg, RATE_KBPS).expand(RATE_B).to(torch.int32)
     got = fe.search_materialize_fast(fb, blk.n_nz, budget.to(device), bcfg, max_block_bytes(cfg))
-    want_c = fe.search_materialize_fast(type(fb)(*(v.cpu() for v in fb)), blk.n_nz.cpu(), budget,
+    want_c = fe.search_materialize_fast(type(fb)(*(v if v is None else v.cpu() for v in fb)),
+                                        blk.n_nz.cpu(), budget,
                                         bcfg, max_block_bytes(cfg))
     for name, a, b_ in zip(("count", "size", "bytes"), got, want_c):
         if not torch.equal(a.cpu(), b_):
@@ -1133,6 +1165,340 @@ def rate_paths(device, card):
         out[f"use_pallas={label}"] = launched
     return out
 
+
+def gap_window(cfg, x, device, card, seg_rtf, seg_bits):
+    """Phase 15: noise_run_window="gap" at phase 4's shape (B = 512,
+    T = 8): launches T x GAP_PER_BLOCK, every block within its budget,
+    the streams decode clean; on a block step's planes the gap p3 walks
+    timed beside the segment window's, and on GAP_PLAIN_B of its streams
+    equal on the card and on the CPU wherever the two devices' exp gives
+    the same noise code. Returns the launch counts."""
+    import dataclasses
+
+    import torch
+
+    from ulcx_torch.bitstream import encode_kernels as ek
+    from ulcx_torch.bitstream import fast_encode as fe
+    from ulcx_torch.codec.encoder import max_block_bytes
+
+    gcfg = dataclasses.replace(cfg, noise_run_window="gap")
+    torch.cuda.reset_peak_memory_stats()
+    counts, warm, audio_s, out = main_path(gcfg, x, device, per_block=GAP_PER_BLOCK)
+    peak = torch.cuda.max_memory_allocated()
+    gap_rtf = rtf_line("gap encode", warm, audio_s, counts, card)
+    streams, _, win, sizes = pack_streams(out)
+    dcounts, _, _, snr = decode_main_path(gcfg, x, streams, win, sizes, device)
+    gap_bits = int(out.size_bits.sum())
+    print(f"gap vs segment, B={x.shape[0]} T={x.shape[1]}, one process: encode realtime factor "
+          f"{gap_rtf:.1f}x vs {seg_rtf:.1f}x ({seg_rtf / gap_rtf:.2f}x slower), total "
+          f"{gap_bits} vs {seg_bits} bits ({(gap_bits - seg_bits) / seg_bits:+.4%}), round-trip "
+          f"SNR {snr:.2f} dB, peak memory {peak / 2**30:.2f} GiB [{card}]", flush=True)
+
+    # one block step's planes at the path's B: the gap p3 walks timed beside
+    # the segment window's plain walks and kernels, and held to the CPU on
+    # GAP_PLAIN_B streams
+    blk, _ = analyze(x[:, :2].copy(), gcfg, device)
+    pl = fe.make_planes(fe.prepare_fast(blk, gcfg))
+    b = blk.n_nz.shape[0]
+    steps = torch.arange(1, fe.N_CAND + 1, dtype=torch.int32, device=device)
+    nn = torch.minimum(((blk.n_nz[:, None] + 7) // 8) * steps, blk.n_nz[:, None]).to(torch.int32)
+    state = fe._state(pl, nn, fe.walks(gcfg))
+    n_words = max_block_bytes(gcfg) // 4
+    size_args = (pl.thr, pl.aux, state)
+    mat_args = (pl.coef, pl.ampn, pl.hfamp, pl.hfmeta, pl.aux, state, pl.hdr, n_words)
+    walks = {"p3_size": (ek.p3_size_gap_plain, size_args + pl.gap, ek.p3_size_plain, ek.p3_size,
+                         size_args),
+             "p3_materialize": (ek.p3_materialize_gap_plain, mat_args + pl.gap,
+                                ek.p3_materialize_plain, ek.p3_materialize, mat_args)}
+    cols = tuple(range(GAP_PLAIN_B))
+    pos = torch.arange(state.shape[0], device=device)[:, None, None]
+    z_r = torch.clamp((state & ek.NCP_MAX) - pos, 0, ek.SENT).to(torch.int32)
+    q_in = [take_cols(v, b, cols) for v in (z_r, (state >> 24) & 0x1F, *pl.gap)]
+    nq = [ek._gap_noise_q(*(v.to(d) for v in q_in)) for d in (device, "cpu")]
+    ties = (nq[0].cpu() != nq[1]).any(0)  # [8, 8] columns whose noise codes differ
+    for name, (gap_fn, gap_args, seg_fn, kernel, seg_args) in walks.items():
+        ms = {}
+        for label, fn, args in (("gap plain", gap_fn, gap_args), ("segment plain", seg_fn, seg_args),
+                                ("segment kernel", kernel, seg_args)):
+            fn(*args)
+            out, ms[label] = timed(fn, args, WARM_RUNS)
+            if label == "gap plain":
+                on_card = out
+        on_cpu = gap_fn(*(take_cols(a, b, cols).cpu() if isinstance(a, torch.Tensor) else a
+                          for a in gap_args))
+        on_card = on_card if isinstance(on_card, tuple) else (on_card,)
+        on_cpu = on_cpu if isinstance(on_cpu, tuple) else (on_cpu,)
+        for g, w in zip(on_card, on_cpu):
+            same = (take_cols(g, b, cols).cpu() == w).reshape(w.shape[0], w.shape[1], -1).all(-1)
+            if not bool((same | ties).all()):
+                raise AssertionError(f"{name} gap: card and CPU differ where their noise codes agree")
+        entry = {label: plain_entry_bytes(fn, args, state.numel())
+                 for label, fn, args in (("gap", gap_fn, gap_args), ("segment", seg_fn, seg_args))}
+        print(f"{name} B={b} P={state.shape[0]}, ms on the card: gap plain {ms['gap plain']:.2f}, "
+              f"segment plain {ms['segment plain']:.2f}, segment kernel {ms['segment kernel']:.4f}; "
+              f"peak bytes a (position, stream, candidate) in one chunk: gap {entry['gap']:.1f}, "
+              f"segment {entry['segment']:.1f} [{card}]; gap on streams 0-{GAP_PLAIN_B - 1} equal "
+              f"on the card and the CPU in every (stream, candidate) but {int(ties.sum())} whose "
+              f"noise codes the devices' exp put apart", flush=True)
+    return counts
+
+
+def plain_entry_bytes(fn, args, entries):
+    """Peak device bytes above the inputs a (position, stream, candidate)
+    of one plain walk run on the whole batch as one chunk (what
+    ``encode_kernels.PLAIN_ENTRY_BYTES`` sizes its chunks by)."""
+    import torch
+
+    from ulcx_torch.bitstream import encode_kernels as ek
+
+    limit = ek.PLAIN_CHUNK_BYTES
+    ek.PLAIN_CHUNK_BYTES = 1 << 62
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn(*args)
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / entries
+    finally:
+        ek.PLAIN_CHUNK_BYTES = limit
+
+
+def write_wav(path, blocks, bits=16):
+    """[T, C, N] float blocks -> a 44.1 kHz WAV (PCM16 or FLOAT32)."""
+    from ulcx_torch.io.wavio import WavWriter
+
+    w = WavWriter(path, 44100, blocks.shape[1], bits, 3 if bits == 32 else 1)
+    w.write_frames(blocks.transpose(0, 2, 1).reshape(-1))
+    w.close()
+
+
+def read_wav(path):
+    """(frames [n, C] float32, WavInfo)."""
+    from ulcx_torch.io.wavio import WavReader
+
+    r = WavReader(path)
+    try:
+        return r.read_frames(r.info.n_samples).reshape(-1, r.info.n_chan), r.info
+    finally:
+        r.close()
+
+
+def run_tool(tool, *args):
+    """Start ``python -m ulcx_torch.tools.<tool> args`` from the repo root."""
+    env = {**os.environ, "PYTHONPATH": HERE + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    return subprocess.Popen([sys.executable, "-m", f"ulcx_torch.tools.{tool}", *args], cwd=HERE,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish(procs, timeout=600):
+    """{label: (exit code, stdout)} of started tools, each waited for."""
+    res = {}
+    for label, proc in procs.items():
+        out, err = proc.communicate(timeout=timeout)
+        res[label] = (proc.returncode, out + err)
+    return res
+
+
+def tools(device, card):
+    """Phase 16: the CLI trio, by subprocess and in process, on
+    TOOL_SECONDS-second stereo PCM16 WAVs of the corpus; the five error
+    paths; -profile:; a checkpoint on the card."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from bench import make_corpus
+    from ulcx_torch.bitstream import decode_kernels as dk
+    from ulcx_torch.bitstream import encode_kernels as ek
+    from ulcx_torch.codec.decoder import decode_stream
+    from ulcx_torch.container import HEADER_SIZE, UlcHeader
+    from ulcx_torch.io import native
+    from ulcx_torch.io.wavio import float_to_raw
+    from ulcx_torch.tools.batch_tool import main as batch_main
+    from ulcx_torch.tools.decode_tool import main as decode_main
+    from ulcx_torch.tools.encode_tool import main as encode_main
+    from ulcx_torch.utils.config import CodecConfig
+
+    print(f"native I/O library {'loaded' if native.available() else 'not loaded: NumPy path'}",
+          flush=True)
+    n = BS
+    t = -(-TOOL_SECONDS * 44100 // n)
+    corpus = make_corpus(TOOL_FILES, t, n)  # [F, T, 2, N]
+    tmp = tempfile.mkdtemp(prefix="ulcx_tools_")
+    try:
+        wavs = [os.path.join(tmp, f"in{i}.wav") for i in range(TOOL_FILES)]
+        for path, blocks in zip(wavs, corpus):
+            write_wav(path, blocks)
+        x, info = read_wav(wavs[0])  # the PCM16 values the tools read
+        audio_s = info.n_samples / 44100
+        n_blocks = -(-info.n_samples // n) + 2
+        ulc = {m: os.path.join(tmp, f"{m}.ulc") for m in ("cbr", "vbr", "abr")}
+        rates = {"cbr": "128", "vbr": "-55", "abr": "128,0.5"}
+        t0 = time.perf_counter()
+        res = finish({m: run_tool("encode_tool", wavs[0], ulc[m], rates[m], f"-blocksize:{n}")
+                      for m in ulc})
+        print(f"encode_tool x3 (CBR-128, VBR -55, ABR 128,0.5) side by side: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for m, (rc, out) in res.items():
+            if rc != 0 or "Total size = " not in out or "Avg complexity = " not in out:
+                raise AssertionError(f"encode_tool {m}: exit {rc}\n{out[-2000:]}")
+            hdr = UlcHeader.unpack(open(ulc[m], "rb").read())
+            if (hdr.block_size, hdr.n_chan, hdr.rate_hz, hdr.n_blocks) != (n, 2, 44100, n_blocks):
+                raise AssertionError(f"encode_tool {m}: header {hdr}")
+            if m == "cbr" and hdr.max_block_size * 8 > CBR_BUDGET:
+                raise AssertionError(f"encode_tool cbr: a block of {hdr.max_block_size} bytes")
+            print(f"encode_tool {m}: {out.strip().splitlines()[-4]}; header {hdr}", flush=True)
+
+        # the five error paths, and the decodes, side by side
+        garbage, truncated = os.path.join(tmp, "g.ulc"), os.path.join(tmp, "t.ulc")
+        with open(garbage, "wb") as f:
+            f.write(b"garbage" * 10)
+        data = open(ulc["cbr"], "rb").read()
+        with open(truncated, "wb") as f:
+            f.write(data[: HEADER_SIZE + (len(data) - HEADER_SIZE) // 2])
+        z = os.path.join(tmp, "z")
+        errors = {
+            "rate 0": (("encode_tool", wavs[0], z, "0"), 1, "ERROR: Invalid coding rate"),
+            "block size": (("encode_tool", wavs[0], z, "128", "-blocksize:1000"), 1,
+                           "ERROR: Unsupported block size"),
+            "format": (("decode_tool", ulc["cbr"], z, "-format:MP3"), 255,
+                       "ERROR: Ignoring invalid output format"),
+            "not a container": (("decode_tool", garbage, z), 255,
+                                "ERROR: Input file is not a valid ULC container"),
+            "truncated": (("decode_tool", truncated, z), 255, "ERROR: Corrupted stream."),
+        }
+        out_wav = {f: os.path.join(tmp, f"cbr.{f}.wav") for f in ("PCM16", "FLOAT32")}
+        procs = {k: run_tool(*v[0]) for k, v in errors.items()}
+        procs.update({f: run_tool("decode_tool", ulc["cbr"], p, f"-format:{f}")
+                      for f, p in out_wav.items()})
+        res = finish(procs)
+        for k, (args, rc, msg) in errors.items():
+            if res[k][0] != rc or msg not in res[k][1]:
+                raise AssertionError(f"error path {k}: exit {res[k][0]}, expected {rc} and "
+                                     f"{msg!r}\n{res[k][1][-2000:]}")
+        print(f"error paths: {', '.join(f'{k} -> exit {rc}' for k, (_, rc, _) in errors.items())}, "
+              f"each with ulcx's message", flush=True)
+        for f in out_wav:
+            if res[f][0] != 0 or "Ok" not in res[f][1]:
+                raise AssertionError(f"decode_tool {f}: exit {res[f][0]}\n{res[f][1][-2000:]}")
+
+        # the tools' PCM against decode_stream of the same bytes
+        hdr = UlcHeader.unpack(data)
+        cfg = CodecConfig(rate_hz=44100, n_chan=2, block_size=n)
+        win = -(-max(hdr.max_block_size, 16) // 64) * 64
+        stream = np.concatenate([np.frombuffer(data[HEADER_SIZE:], np.uint8),
+                                 np.zeros(win + 64, np.uint8)])
+        pcm, _, corrupt, _ = decode_stream(stream, n_blocks, win, cfg)
+        if bool(corrupt.any()):
+            raise AssertionError("decode_stream: the encode tool's stream decodes corrupt")
+        ref = pcm.transpose(1, 2).reshape(-1, 2).cpu().numpy().astype(np.float64)
+        got32, i32 = read_wav(out_wav["FLOAT32"])
+        got16, i16 = read_wav(out_wav["PCM16"])
+        if not (i32.n_samples == i16.n_samples == n_blocks * n and i32.bits == 32 and i16.bits == 16):
+            raise AssertionError(f"decoded WAVs {i32}, {i16}")
+        rel = float(np.sqrt(np.var(got32 - ref) / np.var(ref)))
+        lsb = int(np.abs(got16.astype(np.float64) * 32768
+                         - float_to_raw(ref.astype(np.float32), 16, 1).view("<i2").reshape(-1, 2)).max())
+        if not (rel < PIPE_REL and lsb <= 1):
+            raise AssertionError(f"decode_tool vs decode_stream: FLOAT32 {rel:.3g} relative, PCM16 "
+                                 f"{lsb} LSB (limits {PIPE_REL}, 1)")
+        mid = slice(n, (n_blocks - 3) * n)  # decoded block j is input block j - 1
+        err = got32[n:][: x.shape[0]][mid] - x[mid]
+        snr = 10 * np.log10((x[mid].astype(np.float64) ** 2).sum() / (err.astype(np.float64) ** 2).sum())
+        if not snr > MIN_SNR_DB:
+            raise AssertionError(f"decode_tool: SNR {snr:.2f} dB over the middle blocks")
+        print(f"decode_tool PCM16 and FLOAT32: {n_blocks} blocks; FLOAT32 {rel:.3g} relative from "
+              f"decode_stream's PCM, PCM16 within {lsb} LSB of it converted; SNR over the middle "
+              f"blocks {snr:.2f} dB", flush=True)
+
+        # in process: each tool timed warm (the second of two runs) on the card
+        secs = {}
+        for label, fn, argv in (
+                ("encode_tool CBR-128", encode_main, ["e", wavs[0], ulc["cbr"] + ".2", "128"]),
+                ("decode_tool FLOAT32", decode_main, ["d", ulc["cbr"], z + ".wav", "-format:FLOAT32"]),
+                ("decode_tool PCM16", decode_main, ["d", ulc["cbr"], z + ".wav"])):
+            for _ in range(2):
+                ek.reset_launch_counts()
+                dk.reset_launch_counts()
+                t0 = time.perf_counter()
+                if fn(argv, device=device) != 0:
+                    raise AssertionError(f"{label}: in process, a non-zero exit")
+                secs[label] = time.perf_counter() - t0
+            launched = {k: v for k, v in {**ek.launch_counts(), **dk.launch_counts()}.items() if v}
+            print(f"\n{label} in process: realtime factor {audio_s / secs[label]:.1f}x ({audio_s:.1f} s "
+                  f"of audio in {secs[label]:.2f} s, the second of two runs), launches {launched} "
+                  f"[{card}]", flush=True)
+        if open(ulc["cbr"] + ".2", "rb").read() != data:
+            raise AssertionError("encode_tool: in process and by subprocess, other bytes")
+
+        # the batch tool over TOOL_FILES files
+        out_dir = os.path.join(tmp, "batch")
+        t0 = time.perf_counter()
+        if batch_main(["b", out_dir, "128", *wavs, f"-blocksize:{n}"], device=device) != 0:
+            raise AssertionError("batch_tool: a non-zero exit")
+        bsecs = time.perf_counter() - t0
+        for i in range(TOOL_FILES):
+            raw = open(os.path.join(out_dir, f"in{i}.ulc"), "rb").read()
+            bh = UlcHeader.unpack(raw)
+            bw = -(-max(bh.max_block_size, 16) // 64) * 64
+            s = np.concatenate([np.frombuffer(raw[HEADER_SIZE:], np.uint8), np.zeros(bw + 64, np.uint8)])
+            _, _, bad, _ = decode_stream(s, bh.n_blocks, bw, cfg)
+            if bh.n_blocks != n_blocks or bh.max_block_size * 8 > CBR_BUDGET or bool(bad.any()):
+                raise AssertionError(f"batch_tool: file {i}: header {bh}, corrupt {int(bad.sum())}")
+        print(f"\nbatch_tool {TOOL_FILES} files: headers and budgets kept, every file decodes clean; "
+              f"{TOOL_FILES * audio_s / bsecs:.1f}x realtime aggregate ({bsecs:.2f} s) [{card}]",
+              flush=True)
+
+        # -profile: on a short WAV
+        short = os.path.join(tmp, "short.wav")
+        write_wav(short, corpus[1, :PROFILE_BLOCKS])
+        trace_dir = os.path.join(tmp, "trace")
+        if encode_main(["e", short, z, "128", f"-profile:{trace_dir}"], device=device) != 0:
+            raise AssertionError("encode_tool -profile: a non-zero exit")
+        traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+        body = open(traces[0], "rb").read() if len(traces) == 1 else b""
+        if b"traceEvents" not in body or b"aten::" not in body:
+            raise AssertionError(f"-profile: {traces} holds no trace")
+        kernels = [k for k in ("p1_kernel", "p2_kernel", "p3_kernel") if k.encode() in body]
+        print(f"\n-profile: {os.path.basename(traces[0])}, {len(body)} bytes; the card's walk "
+              f"kernels in it: {kernels or 'none (no device activity traced)'}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    checkpoint_resume(cfg, corpus[-1, :CKPT_T], device)
+
+
+def checkpoint_resume(cfg, xs, device):
+    """Phase 16's checkpoint: encode_stream of the first half of xs
+    [T, 2, N], its carry through save_carry and load_carry (a file on
+    disk), the second half from the loaded carry: one call's bytes."""
+    import shutil
+    import tempfile
+
+    import torch
+    from ulcx_torch.codec.encoder import _map, encode_stream
+    from ulcx_torch.utils.checkpoint import _leaves, load_carry, save_carry
+
+    half = xs.shape[0] // 2
+    kw = {"rate_kbps": RATE_KBPS}
+    full, _ = encode_stream(xs, cfg, "cbr", device=device, **kw)
+    head, carry = encode_stream(xs[:half], cfg, "cbr", device=device, **kw)
+    path = os.path.join(tempfile.mkdtemp(prefix="ulcx_ckpt_"), "carry.npz")
+    try:
+        save_carry(path, carry)
+        loaded = load_carry(path, _map(torch.zeros_like, carry))
+    finally:
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    if not all(a.device == b_.device and torch.equal(a, b_)
+               for (_, a), (_, b_) in zip(_leaves(loaded), _leaves(carry))):
+        raise AssertionError("checkpoint: the loaded carry differs from the saved one")
+    tail, _ = encode_stream(xs[half:], cfg, "cbr", carry=loaded, device=device, **kw)
+    for name in ("size_bits", "data"):
+        if not torch.equal(torch.cat([getattr(head, name), getattr(tail, name)]), getattr(full, name)):
+            raise AssertionError(f"checkpoint: resumed {name} differ from one call's")
+    print(f"checkpoint on the {device}: {half} + {xs.shape[0] - half} blocks through save_carry / "
+          f"load_carry give one call's bytes", flush=True)
 
 def main() -> int:
     import torch
@@ -1185,8 +1551,8 @@ def main() -> int:
     kernels_vs_plain(cfg_r, ragged_corpus(), "cuda", overflow_words=True)
 
     phase("4 main path")
-    counts, warm, audio_s, encoded = main_path(cfg, x, "cuda")
-    rtf_line("encode", warm, audio_s, counts, card)
+    counts, warm, audio_s_enc, encoded = main_path(cfg, x, "cuda")
+    rtf_line("encode", warm, audio_s_enc, counts, card)
 
     phase("5 cuda vs cpu")
     cuda_vs_cpu(cfg, x[:CPU_B, :CPU_T].copy())
@@ -1224,6 +1590,13 @@ def main() -> int:
 
     phase("14 rate paths")
     rate_counts = rate_paths("cuda", card)
+
+    phase("15 gap window")
+    gap_counts = gap_window(cfg, x, "cuda", card, audio_s_enc / sorted(warm)[len(warm) // 2],
+                            int(encoded.size_bits.sum()))
+
+    phase("16 tools")
+    tools("cuda", card)
     phase(None)
 
     rows = [(name, SOURCE, counts[name], v) for name, v in kres.items()]
@@ -1250,7 +1623,7 @@ def main() -> int:
         row[f"plain_cpu_ms_p65536_b256_{len(HUGE_COLS)}_streams"] = huge_full[name][2]
         row["ms_p65536_b13"], row["plain_cpu_ms_p65536_b13"] = huge[name][1], huge[name][2]
         row["launches_bs32768"] = {**huge_counts, **huge_dcounts}[name]
-        for knob, c in {**fold_counts, **one_counts, **rate_counts}.items():
+        for knob, c in {**fold_counts, **one_counts, **rate_counts, "gap": gap_counts}.items():
             if name in c:
                 row[f"launches {knob}"] = c[name]
         kernels.append(row)

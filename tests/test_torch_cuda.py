@@ -2,8 +2,9 @@
 (also past P = 32768), the encode and decode paths against the CPU
 port, the transform backends against the dense one, the folded encode
 forms against the block loop, the single-stream entry points round
-trip, the pipelined decoder against the per-block one, and the rate
-paths (``bisect``, ``use_pallas="off"``).
+trip, the pipelined decoder against the per-block one, the rate paths
+(``bisect``, ``use_pallas="off"``), the gap noise window, a checkpoint
+and the encode and decode tools.
 
 Marked ``cuda``; every test skips without a card. The file imports
 nothing of JAX, so on a machine without it run it past the JAX test
@@ -410,3 +411,76 @@ def test_pipelined_decoder_on_card(dev):
     ref = pcm.double()
     assert float(torch.sqrt((ppcm.double() - ref).var() / ref.var())) < 1e-5
     assert float((pcarry.lap - carry.lap).abs().max()) <= 1e-5
+
+
+def test_gap_window_on_card(dev):
+    """noise_run_window="gap": p1 and p2 launched, no p3 kernel (their
+    gap mode runs as whole-plane ops on the card); from the same walk
+    inputs count, size and bytes equal the CPU's."""
+    t = 2
+    gcfg = CodecConfig(rate_hz=44100, n_chan=C, block_size=N, noise_run_window="gap")
+    x = torch.from_numpy(make_corpus(13, t, N))
+    ek.reset_launch_counts()
+    out, _ = batch_encode(x, gcfg, "abr", rate_kbps=128.0, avg_complexity=0.5, device=dev)
+    torch.cuda.synchronize()
+    assert ek.launch_counts() == {"p1": 3 * t, "p2": 3 * t, "p3_size": 0, "p3_materialize": 0}
+    _, blk = analyze_block_batched(init_carry_batched(gcfg, 13, dev), x[:, 0].to(dev), gcfg)
+    fb = fe.prepare_fast(blk, gcfg)
+    budget = cbr_bit_budget(gcfg, 128.0).expand(13).to(torch.int32)
+    got = fe.search_materialize_fast(fb, blk.n_nz, budget.to(dev), gcfg, max_block_bytes(gcfg))
+    want = fe.search_materialize_fast(type(fb)(*(v.cpu() for v in fb)), blk.n_nz.cpu(), budget,
+                                      gcfg, max_block_bytes(gcfg))
+    for a, b_ in zip(got, want):
+        assert torch.equal(a.cpu(), b_)
+    assert int(got[1].max()) <= int(budget[0])
+
+
+def _one(carry):
+    """A batch-of-one carry without its batch axis."""
+    return type(carry)(*(_one(x) if isinstance(x, tuple) else x[0] for x in carry))
+
+
+def test_checkpoint_and_tools_on_card(dev, tmp_path):
+    """encode_stream resumed from a checkpoint on the card gives one
+    call's bytes; the encode and decode tools run there, the decode tool
+    through the pipelined decoder: its PCM16 equals that decoder's PCM
+    (decoded in the tool's chunks) converted."""
+    from ulcx_torch.analysis.block import EncoderCarry
+    from ulcx_torch.container import UlcHeader
+    from ulcx_torch.io.wavio import WavReader, WavWriter
+    from ulcx_torch.tools.decode_tool import main as decode_main
+    from ulcx_torch.tools.decode_tool import pcm_to_int
+    from ulcx_torch.tools.encode_tool import main as encode_main
+    from ulcx_torch.utils.checkpoint import load_carry, save_carry
+
+    x = make_corpus(2, 8, N)[1]
+    full, _ = encode_stream(x, CFG, "cbr", rate_kbps=128.0)
+    head, carry = encode_stream(x[:4], CFG, "cbr", rate_kbps=128.0)
+    save_carry(str(tmp_path / "c.npz"), carry)
+    loaded = load_carry(str(tmp_path / "c.npz"), _one(EncoderCarry.init(CFG, 1, dev)))
+    assert loaded.sample_prev.is_cuda
+    tail, _ = encode_stream(x[4:], CFG, "cbr", carry=loaded, rate_kbps=128.0)
+    assert torch.equal(torch.cat([head.data, tail.data]), full.data)
+
+    wav, ulc, out = (str(tmp_path / f) for f in ("in.wav", "a.ulc", "out.wav"))
+    w = WavWriter(wav, 44100, C, 16, 1)
+    w.write_frames(x[:6].transpose(0, 2, 1).reshape(-1))
+    w.close()
+    assert encode_main(["e", wav, ulc, "128", f"-blocksize:{N}", "-chunk:4"]) == 0
+    assert decode_main(["d", ulc, out, "-format:PCM16", "-chunk:4"]) == 0
+    raw = open(ulc, "rb").read()
+    hdr = UlcHeader.unpack(raw)
+    win = -(-max(hdr.max_block_size, 16) // 64) * 64
+    stream = np.concatenate([np.frombuffer(raw[hdr.stream_offs:], np.uint8),
+                             np.zeros(win + 64, np.uint8)])
+    pcms, off, dcarry = [], None, None
+    for _ in range(hdr.n_blocks // 4):
+        pcm, _, corrupt, (off, dcarry) = decode_stream_pipelined(stream, 4, win, CFG, offset=off,
+                                                                 carry=dcarry)
+        assert not bool(corrupt.any())
+        pcms.append(pcm)
+    r = WavReader(out)
+    got = r.read_frames_int(r.info.n_samples)
+    r.close()
+    want = pcm_to_int(torch.cat(pcms), 16).transpose(1, 2).reshape(-1).cpu().numpy()
+    np.testing.assert_array_equal(got, want)

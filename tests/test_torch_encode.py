@@ -155,9 +155,10 @@ def test_scan_major_layout(x):
         assert torch.equal(u, v.transpose(0, 1))
 
 
-@pytest.mark.parametrize("change", [{"noise_run_window": "gap"}])
-def test_unported_settings_raise(change):
-    cfg = TCodecConfig(**{**dict(rate_hz=44100, n_chan=C, block_size=N), **change})
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        t_batch_encode(torch.zeros(8, 1, cfg.n_chan, cfg.block_size), cfg, "cbr", rate_kbps=128.0,
-                       device="cpu")
+def test_gap_refuses_pallas_on():
+    """As in ulcx: the gap noise window has no kernel, and "on" asks for
+    one."""
+    kw = dict(rate_hz=44100, n_chan=C, block_size=N, noise_run_window="gap", use_pallas="on")
+    for cls in (CodecConfig, TCodecConfig):
+        with pytest.raises(ValueError, match="scan-only"):
+            cls(**kw)

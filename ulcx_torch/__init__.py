@@ -18,16 +18,32 @@ each record's expansion word, then the RNG-expand kernel;
 ``codec.decoder.decode_stream`` / ``decode_block`` code one stream as a
 batch of one; ``codec.decoder.decode_stream_pipelined`` decodes it with
 only the state machine serial (``ops.rngjump`` gives every block its RNG
-state). Every P = n_chan * block_size the configuration admits is
-served, and so are ``rate_search="bisect"`` and ``use_pallas="off"``
-(the plain versions on any device). The entry points run on the card
-(``device="cuda"``) unless the caller asks for ``device="cpu"``; below
-them every function follows the device of its input tensors: on the CPU
-the kernels run their plain PyTorch versions, on a CUDA device the
-kernels.
+state). Every setting the configuration admits is served: every
+P = n_chan * block_size, ``rate_search="bisect"``, ``use_pallas="off"``
+(the plain versions on any device) and ``noise_run_window="gap"`` (the
+reference's exact noise-run window, whose emission walks run their plain
+versions' gap mode, as ulcx runs it on its scan path). The entry points
+run on the card (``device="cuda"``) unless the caller asks for
+``device="cpu"``; below them every function follows the device of its
+input tensors: on the CPU the kernels run their plain PyTorch versions,
+on a CUDA device the kernels.
+
+The runtime surface is the CLI trio, on the card:
+``python -m ulcx_torch.tools.encode_tool`` (WAV -> ``.ulc`` through
+``encode_stream``), ``python -m ulcx_torch.tools.decode_tool`` (``.ulc``
+-> WAV through ``decode_stream_pipelined``) and
+``python -m ulcx_torch.tools.batch_tool`` (a corpus through
+``encode_stream_batched``), with ulcx's flags, messages and exit codes;
+their ``main(argv, device="cpu")`` runs on the CPU. Beside them:
+``container`` (the ULC2 header), ``io.wavio`` / ``io.miniriff`` /
+``io.native`` (WAV I/O, the repo's ``native/libulcio.so`` when it
+loads), ``utils.checkpoint`` (carries to ``.npz`` in ulcx's layout, so
+each package loads the other's) and ``utils.profiling``
+(``torch.profiler`` traces, ``-profile:DIR``).
 
 Nothing here imports jax or ``ulcx``: the port keeps its own copy of
-what it needs (``utils.config``, ``ops.patterns``, ``bitstream.tables``).
+what it needs (``utils.config``, ``ops.patterns``, ``bitstream.tables``,
+the container and I/O modules).
 """
 
 __version__ = "0.1.0"

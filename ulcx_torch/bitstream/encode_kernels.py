@@ -12,7 +12,9 @@ Port of ``ulcx.bitstream.pallas_encode3``. Each walk has
   positions (p1 a binary search over sparse tables of window minima and
   maxima, p2 suffix minima of indices, p3 pointer doubling and prefix
   sums), exact equivalents of the serial walks. It is the CPU path, the
-  ``use_pallas="off"`` path, and the kernels' oracle on the card. Their
+  ``use_pallas="off"`` path, and the kernels' oracle on the card; both
+  p3 walks also have a mode no kernel has, the gap noise window
+  (``p3_size_gap_plain``, ``p3_materialize_gap_plain``). Their
   working planes take tens to hundreds of bytes a (position, stream,
   candidate) (PLAIN_ENTRY_BYTES; p1's sparse tables 8 (ceil(log2 P) + 1)),
   so each runs the batch in chunks of streams whose planes fit
@@ -62,7 +64,8 @@ HELPER_WARPS = 7
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may take on Hopper
 PLAIN_CHUNK_BYTES = 1 << 30  # a plain walk's working planes for one chunk of streams
 # peak bytes a (position, stream, candidate) of p2, p3 size and p3 materialize's
-# whole-plane ops: 56, 91 and 256 measured at P = 65,536 (devtools/torch_plain_memory.py)
+# whole-plane ops: 56, 91 and 256 measured at P = 65,536 (devtools/torch_plain_memory.py);
+# the p3 walks' gap mode peaks no higher (chip_smoke.py phase 15)
 PLAIN_ENTRY_BYTES = {"p2": 64, "p3_size": 96, "p3_materialize": 256}
 
 # BuildQuantizer constants (reference ulcEncoder_Encode.c:50-87)
@@ -360,10 +363,35 @@ def _active(actable: torch.Tensor, adv: torch.Tensor) -> torch.Tensor:
                                                           max=n_pos)))
 
 
-def _p3_walk(aux, state, thr=None, mat=None):
+def _gap_noise_q(z_r, qq, cw, cwy):
+    """The noise-fill code [P, B, 8] of every (position, stream,
+    candidate) over the reference's run window, min(z_r, 527) positions
+    (``noise_run_window="gap"``, ulcx/bitstream/encode.py:248-261): the
+    amplitude exp(S_wy / S_w) of the lines [p >> 1, b), S from the
+    exclusive line prefix sums cw, cwy [P/2 + 1, B], scaled by the
+    quantizer of the next coded position, its code capped at 8 and 0
+    where S_wy is 0."""
+    n_pos = z_r.shape[0]
+    pos = _positions(n_pos, z_r.device)
+    a = pos >> 1
+    n = (torch.clamp(z_r, max=527) + (pos & 1) + 1) >> 1
+    b = torch.clamp(a + n, 0, cw.shape[0] - 1)
+
+    def span(c):
+        return c[:, :, None].expand(-1, -1, N_CAND).gather(0, b) - c[a[:, 0, 0]][:, :, None]
+
+    s_w, s_wy = span(cw), span(cwy)
+    amp = torch.exp(s_wy / torch.where(s_w > 0, s_w, 1.0))
+    return _i32(torch.where(s_wy != 0, torch.clamp(cq_unsigned(amp * _exp2i(qq)), max=8), 0))
+
+
+def _p3_walk(aux, state, thr=None, mat=None, gap=()):
     """The emission walk shared by both p3 modes; ``mat`` is None
     (size-only, reads ``thr``) or (coef, ampn, hfamp, hfmeta, hdr,
-    n_words).
+    n_words). ``gap`` is () for the segment noise window, whose noise
+    test size-only reads from ``thr`` and materialize from ``ampn``, or
+    the line prefix sums (cw, cwy) of the gap window, whose noise code
+    both modes compute per candidate (``_gap_noise_q``).
 
     Whole-plane ops, no loop over positions: every position's event
     (its class, run length and nybbles) depends on the state plane only;
@@ -397,14 +425,17 @@ def _p3_walk(aux, state, thr=None, mat=None):
         qn1 = torch.where(c0 < 0, -qn1, qn1)
         qn2 = torch.clamp(cq_unsigned(torch.abs(c1) * scale), max=7)
         qn2 = torch.where(c1 < 0, -qn2, qn2)
-        amp = ampn[line][:, :, None]
-        nq_est = torch.where(amp > 0, torch.clamp(cq_unsigned(amp * scale), max=8), 0)
+        if gap:
+            nq_est = _gap_noise_q(z_r, qq, *gap)
+        else:
+            amp = ampn[line][:, :, None]
+            nq_est = torch.where(amp > 0, torch.clamp(cq_unsigned(amp * scale), max=8), 0)
         resc_ok = (torch.abs(qn1) > 1) & ((z_r < 2) | (torch.abs(qn2) > 1))
         noise_ok = nq_est > 0
     else:
         th = thr[:, :, None]
         resc_ok = (qq >= (th & 63)) & ((z_r < 2) | (qq >= ((th >> 6) & 63)))
-        noise_ok = qq >= ((th >> 12) & 63)
+        noise_ok = _gap_noise_q(z_r, qq, *gap) > 0 if gap else qq >= ((th >> 12) & 63)
     do_resc = gp & (z_r <= 2) & resc_ok
     do_noise = gp & ~do_resc & (z_r >= 16) & noise_ok
     do_zs = gp & ~do_resc & ~do_noise & (z_r < 33)
@@ -611,6 +642,28 @@ def p3_materialize(coef, ampn, hfamp, hfmeta, aux, state, hdr, n_words: int):
     )
     p3_materialize.launches += 1
     return bits, words, freg, fwc
+
+
+def p3_size_gap_plain(thr, aux, state, cw, cwy):
+    """``p3_size_plain`` with the gap noise window: cw, cwy [P/2 + 1, B]
+    f32 exclusive line prefix sums of the noise weights w and w*y.
+    No kernel has this mode: like ulcx's scan path, it runs as
+    whole-plane ops on any device."""
+    return _by_streams(lambda thr, aux, state, cw, cwy: _p3_walk(aux, state, thr=thr,
+                                                                 gap=(cw, cwy)),
+                       (thr, aux, state, cw, cwy), (1, 1, 1, 1, 1), aux.shape[0],
+                       PLAIN_ENTRY_BYTES["p3_size"], 0)
+
+
+def p3_materialize_gap_plain(coef, ampn, hfamp, hfmeta, aux, state, hdr, n_words: int, cw, cwy):
+    """``p3_materialize_plain`` with the gap noise window (cw, cwy as in
+    ``p3_size_gap_plain``); ``ampn`` is not read."""
+    def walk(coef, hfamp, hfmeta, aux, state, hdr, cw, cwy):
+        return _p3_walk(aux, state, mat=(coef, None, hfamp, hfmeta, hdr, n_words), gap=(cw, cwy))
+
+    return _by_streams(walk, (coef, hfamp, hfmeta, aux, state, hdr, cw, cwy),
+                       (1, 1, 1, 1, 1, 0, 1, 1), aux.shape[0],
+                       PLAIN_ENTRY_BYTES["p3_materialize"], 0)
 
 
 KERNELS = (p1, p2, p3_size, p3_materialize)

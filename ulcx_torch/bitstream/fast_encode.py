@@ -17,7 +17,18 @@ What the TPU layout needed and this port does not: padding batches to
 plain index gathers, so no integer ever passes through a float
 product), k-way where-chains for the final select, and the sort that
 compacted packed words (the materialize walk stores word ``wcount``
-directly). Noise-run semantics: ``noise_run_window="segment"``.
+directly).
+
+Noise-run window: with ``noise_run_window="segment"`` (the default) the
+noise amplitude is candidate-independent and ``prepare_fast`` computes
+it once per line. With ``"gap"``, the reference's exact window
+min(gap, 527), it depends on each candidate's next coded position:
+``prepare_fast`` then also carries the exclusive line prefix sums
+``cw``, ``cwy`` and ``walks(cfg)`` prices and packs with the plain p3
+walks' gap mode (no kernel has it, as ulcx has no Pallas kernel for
+it), while p1 and p2, whose outputs do not depend on the window, stay
+the kernels. The gap ladder is the classic, exact one, as ulcx's scan
+path searches.
 """
 
 from __future__ import annotations
@@ -55,6 +66,10 @@ class FastBlockData(NamedTuple):
     window_ctrl: torch.Tensor  # [B] i32
     header: torch.Tensor       # [B, 2] i32 window-control nybbles
     n_header: torch.Tensor     # [B] i32 header nybble count
+    # noise_run_window="gap" only: exclusive prefix sums of w and w*y
+    # over the lines, with the grand total last
+    cw: torch.Tensor | None = None   # [B, L + 1] f32
+    cwy: torch.Tensor | None = None  # [B, L + 1] f32
 
 
 @lru_cache(maxsize=16)
@@ -83,7 +98,9 @@ def prepare_fast(blk: AnalyzedBlock, cfg: CodecConfig) -> FastBlockData:
     The noise-run amplitude averages the noise spectrum over
     min(line + 264, segment end) lines; the HF extension fits a
     log-linear decay over the rest of the segment by least squares.
-    Both come from five prefix sums over the pair (line) domain."""
+    Both come from five prefix sums over the pair (line) domain; with
+    ``noise_run_window="gap"`` the first two of them go along whole, for
+    the walks to average over each candidate's gap."""
     n, c = cfg.block_size, cfg.n_chan
     p_tot = n * c
     nl = p_tot // 2
@@ -154,7 +171,11 @@ def prepare_fast(blk: AnalyzedBlock, cfg: CodecConfig) -> FastBlockData:
     wc = blk.window_ctrl.to(_I32)
     header = torch.stack([wc & 0xF, (wc >> 4) & 0xF], dim=-1)
     n_header = torch.where((wc & 0x8) != 0, 2, 1).to(_I32)
-    return FastBlockData(coef, aux, key, amp_noise, amp_lin, hf_meta, wc, header, n_header)
+    gap = {}
+    if cfg.noise_run_window == "gap":
+        gap = {"cw": torch.cat([cw_a, tot[:, 0]], dim=-1),
+               "cwy": torch.cat([cwy_a, tot[:, 1]], dim=-1)}
+    return FastBlockData(coef, aux, key, amp_noise, amp_lin, hf_meta, wc, header, n_header, **gap)
 
 
 def _qmin_ge(m: torch.Tensor, thr_kind: str) -> torch.Tensor:
@@ -206,6 +227,7 @@ class Planes(NamedTuple):
     hdr: torch.Tensor      # [B] header nybbles | count << 8
     skey: torch.Tensor
     sidx: torch.Tensor
+    gap: tuple = ()        # gap noise window: (cw, cwy) [L + 1, B], passed on to p3
 
 
 def make_planes(fb: FastBlockData) -> Planes:
@@ -229,6 +251,7 @@ def make_planes(fb: FastBlockData) -> Planes:
         hdr=hdr,
         skey=~skinv,
         sidx=sidx.to(_I32),
+        gap=() if fb.cw is None else (pb(fb.cw), pb(fb.cwy)),
     )
 
 
@@ -250,8 +273,13 @@ def walks(cfg: CodecConfig) -> ek.Walks:
     """The walks ``cfg`` asks for: the kernels (whose wrappers run the
     plain versions on CPU tensors and launch the kernels on CUDA ones),
     or with ``use_pallas="off"`` the plain versions wherever the tensors
-    lie, launching no kernel."""
-    return ek.PLAIN_WALKS if cfg.use_pallas == "off" else ek.KERNEL_WALKS
+    lie, launching no kernel. With ``noise_run_window="gap"`` both p3
+    walks are the plain versions' gap mode, which take the planes' gap
+    prefix sums as two more arguments."""
+    w = ek.PLAIN_WALKS if cfg.use_pallas == "off" else ek.KERNEL_WALKS
+    if cfg.noise_run_window == "gap":
+        w = w._replace(p3_size=ek.p3_size_gap_plain, p3_materialize=ek.p3_materialize_gap_plain)
+    return w
 
 
 def _state(pl: Planes, nn: torch.Tensor, w: ek.Walks) -> torch.Tensor:
@@ -268,13 +296,14 @@ def _sizes_of(bits: torch.Tensor, n_header: torch.Tensor) -> torch.Tensor:
 
 def round_sizes(pl: Planes, n_header, nn, w: ek.Walks = ek.KERNEL_WALKS) -> torch.Tensor:
     """One size-only round: byte-aligned sizes [B, 8] of candidates nn."""
-    return _sizes_of(w.p3_size(pl.thr, pl.aux, _state(pl, nn, w)), n_header)
+    return _sizes_of(w.p3_size(pl.thr, pl.aux, _state(pl, nn, w), *pl.gap), n_header)
 
 
 def _materialize(pl: Planes, nn, max_bytes: int, w: ek.Walks):
     """Final round: (bits, words, freg, fwc) for candidates nn [B, 8]."""
     return w.p3_materialize(
-        pl.coef, pl.ampn, pl.hfamp, pl.hfmeta, pl.aux, _state(pl, nn, w), pl.hdr, max_bytes // 4
+        pl.coef, pl.ampn, pl.hfamp, pl.hfmeta, pl.aux, _state(pl, nn, w), pl.hdr, max_bytes // 4,
+        *pl.gap
     )
 
 
@@ -419,7 +448,8 @@ def materialize_fast(fb: FastBlockData, n_out, cfg: CodecConfig, max_bytes: int)
 
 
 def search_materialize_fast(fb: FastBlockData, n_nz, budget, cfg: CodecConfig, max_bytes: int):
-    """CBR/ABR: the seeded ladder (above SEEDED_MAX_P the classic one),
+    """CBR/ABR: the seeded ladder (above SEEDED_MAX_P, and with the gap
+    noise window, the classic one),
     with the final round fused into materialization (every candidate is
     priced and packed; each stream keeps its best feasible one); or,
     with ``rate_search="bisect"``, the
@@ -435,7 +465,8 @@ def search_materialize_fast(fb: FastBlockData, n_nz, budget, cfg: CodecConfig, m
         bits, words, _, _ = _materialize(pl, _every_slot(n_out), max_bytes, w)
         return n_out, _sizes_of(bits[:, :1], fb.n_header)[:, 0], _words_to_bytes(words[:, 0])
     lo, hi = _bracket_search(lambda nn: round_sizes(pl, fb.n_header, nn, w), n_nz.to(_I32),
-                             budget, _rounds(p_tot), seeded=p_tot <= SEEDED_MAX_P)
+                             budget, _rounds(p_tot),
+                             seeded=p_tot <= SEEDED_MAX_P and cfg.noise_run_window == "segment")
     cands_c = _final_cands(lo, hi)
     bits, words, _, _ = _materialize(pl, cands_c, max_bytes, w)
     sizes = _sizes_of(bits, fb.n_header)

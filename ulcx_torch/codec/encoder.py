@@ -30,7 +30,7 @@ from ulcx_torch.bitstream.fast_encode import (
     prepare_fast,
     search_materialize_fast,
 )
-from ulcx_torch.utils.config import CodecConfig, check_supported
+from ulcx_torch.utils.config import CodecConfig
 from ulcx_torch.utils.device import on_device
 
 _E_TO_E = float(np.float32(float.fromhex("0x1.E4EFB7p3")))  # e^e
@@ -95,7 +95,6 @@ def encode_block_batched(carry: EncoderCarry, new_blocks: torch.Tensor, cfg: Cod
                          mode: str, **kw):
     """One block step for a batch: carry with leading [B], new_blocks
     [B, C, N]. Returns (new carry, EncodedBlock with leading [B])."""
-    check_supported(cfg)
     carry, blk = analyze_block_batched(carry, new_blocks, cfg)
     return carry, _encode_analyzed_fast(blk, cfg, mode, **kw)
 
@@ -132,7 +131,6 @@ def encode_stream_batched(blocks: torch.Tensor, cfg: CodecConfig, mode: str,
     per chunk of ``cfg.fold_bitstream`` blocks at fold * B streams: the
     walks are launched T / fold times and the bytes do not depend on
     fold. A fold that does not divide T counts as 1, block by block."""
-    check_supported(cfg)
     b, t = blocks.shape[0], blocks.shape[1]
     if carry is None:
         carry = init_carry_batched(cfg, b, blocks.device)

@@ -2,8 +2,8 @@
 
 The port's own copy of ``ulcx.utils.config``: the same dataclass, fields,
 defaults, checks and derived properties, so that one set of keyword
-arguments configures both packages alike. The port serves only part of
-it; see ``check_supported``.
+arguments configures both packages alike, and the port serves every
+setting it admits.
 
 The reference's only configuration is three compile-time feature flags
 (reference include/ulcEncoder.h:9-33: ULC_USE_PSYCHOACOUSTICS,
@@ -55,7 +55,8 @@ class CodecConfig:
     rate_search: str = "ladder"
     # Noise-run amplitude window: "segment" (min(seg_end - pos, 527)
     # lines, candidate-independent) or "gap" (the reference's exact
-    # min(gap_len, 527); scan-only, not ported, ROADMAP A.9e).
+    # min(gap_len, 527) per candidate; no kernel has it, so its emission
+    # walks run their plain versions, and "on" refuses it as in ulcx).
     noise_run_window: str = "segment"
     # Bitstream walks: "auto" and "on" both mean the kernels in the port,
     # at every P; "off" runs their plain PyTorch versions on whatever
@@ -118,15 +119,3 @@ class CodecConfig:
         if self.transform_backend != "auto":
             return self.transform_backend
         return "matmul" if n <= self.matmul_max_n else "fact"
-
-
-def check_supported(cfg: CodecConfig) -> None:
-    """Raise NotImplementedError for encoder settings this port does not
-    serve yet, naming the ROADMAP item that will. Every P =
-    n_chan * block_size the dataclass admits is served (the walks'
-    words hold a position in 23-24 bits), and so are both rate searches
-    and all three ``use_pallas`` settings."""
-    if cfg.noise_run_window == "gap":
-        raise NotImplementedError(
-            "noise_run_window='gap' is not ported: ROADMAP A.9e"
-        )
