@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's encode and decode paths and tools on one CUDA card.
+"""Drive the PyTorch port's encode and decode paths, tools and mesh on one CUDA card.
 
     python3 chip_smoke.py        # from the repo root; one CUDA GPU, nvcc on the machine
 
@@ -121,7 +121,25 @@ Phases, each of which raises on failure:
     files (headers, budgets, clean decodes); ``-profile:DIR`` writes a
     trace; a checkpoint on the card (half the blocks, ``save_carry``,
     ``load_carry``, the rest) gives one call's bytes. Prints whether the
-    native I/O library loaded and each tool's realtime factor.
+    native I/O library loaded and each tool's realtime factor;
+17. mesh: (a) ``data_mesh()`` in this process, a world of one over NCCL,
+    through phases 4 and 7 with their checks: blocks, sizes, PCM, bits
+    and corrupt flags identical to theirs, the total the float32 sum,
+    launches T x (3, 3, 2, 1) and T x (0, 1, 1, 0); (b) ``python -m
+    ulcx_torch.graft_entry mesh`` under torchrun at phase 4's shape:
+    NCCL over a card each where two or more are visible (at most four),
+    else two ranks sharing card 0 over gloo. Each rank's launches are
+    phase 4's and 7's, its shard equals the no-mesh call on its rows,
+    its refusals raise, its blocks decode clean; the whole holds phase
+    11's card bounds against phase 4 (window control identical, each
+    block within 64 bits, the total within 0.1 %, coded counts differing
+    in at most 0.5 % of blocks, SNR within 0.3 dB of phase 7's); the
+    all-reduced total is the float32 sum of the shards. Prints the
+    aggregate encode and decode realtime factors (the median of 3 runs,
+    each from a barrier before the call to one after it on every rank)
+    beside phase 4's and 7's, and how many cards took part; (c)
+    ``dryrun_multichip`` over as many ranks, and ``entry()``'s block
+    step once on the card.
 
 Each phase prints the seconds it took.
 
@@ -131,8 +149,8 @@ times at the main path's B=512, and its bound: the bytes of its inputs
 and outputs at that shape over the card's 3.35 TB/s (no PyTorch call
 computes any of these serial walks, so ``library_ms`` is null); beside
 them the times at P = 8192 (phase 10) and P = 65,536 (phase 13) and the
-launches on the other paths (the gap window's among them); the last
-is ``{"ok": true, "device": {...}}``. The script exits
+launches on the other paths (the gap window's and the mesh's among
+them); the last is ``{"ok": true, "device": {...}}``. The script exits
 non-zero, printing neither, when there is no CUDA device or any phase
 fails. It imports nothing of JAX.
 """
@@ -174,6 +192,10 @@ GAP_PLAIN_B = 8  # phase 15: the gap p3 walks on the card and the CPU on 8 strea
 TOOL_SECONDS, TOOL_FILES = 30, 4  # phase 16: seconds of audio a WAV, WAVs for the batch tool
 PROFILE_BLOCKS = 8  # phase 16: the -profile: run's WAV
 CKPT_T = 32  # phase 16: blocks encoded across a checkpoint
+MESH_MAX_RANKS = 4  # phase 17: ranks of the torchrun mesh, a card each where there are cards
+MESH_RUNS = 3  # phase 17: timed runs of the torchrun mesh
+MESH_TIMEOUT_S = 400  # phase 17: limit of each torchrun
+ENTRY_BS = 1024  # phase 17: entry()'s block size
 PCM_RMS = 1e-5  # card vs CPU: float32 matrix products sum in another order
 MIN_SNR_DB = 12.0  # the corpus round-trips at ~16.5 dB at CBR-128; far below means broken
 SOURCE = "ulcx_torch/csrc/encode_walks.cu"
@@ -401,11 +423,12 @@ def check_encoded(sizes, data, b, t, cfg, label):
         raise AssertionError(f"{label}: bytes set past a block's size")
 
 
-def main_path(cfg, x, device, stage_runs=None, per_block=PER_BLOCK):
-    """Phase 4 (and 10, 11, 13): returns (launch counts, warm seconds of
-    each repeat, seconds of audio, the encoded blocks). ``stage_runs``
-    is how often the bitstream stages run: once a block unless
-    ``cfg`` folds them; ``per_block`` the launches of one run."""
+def main_path(cfg, x, device, stage_runs=None, per_block=PER_BLOCK, mesh=None):
+    """Phase 4 (and 10, 11, 13, 15, 17): returns (launch counts, warm
+    seconds of each repeat, seconds of audio, the encoded blocks).
+    ``stage_runs`` is how often the bitstream stages run: once a block
+    unless ``cfg`` folds them; ``per_block`` the launches of one run.
+    With a ``mesh`` (a world of one) the total is its float32 form."""
     import torch
 
     from ulcx_torch.bitstream import encode_kernels as ek
@@ -415,10 +438,13 @@ def main_path(cfg, x, device, stage_runs=None, per_block=PER_BLOCK):
     b, t = blocks.shape[:2]
     ek.reset_launch_counts()
     t0 = time.perf_counter()
-    out, stats = batch_encode(blocks, cfg, "cbr", rate_kbps=RATE_KBPS)
+    out, stats = batch_encode(blocks, cfg, "cbr", rate_kbps=RATE_KBPS, mesh=mesh)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     counts = ek.launch_counts()
+    if mesh is not None and not (stats["total_bits"].dtype == torch.float32 and torch.equal(
+            stats["total_bits"], torch.sum(out.size_bits).to(torch.float32))):
+        raise AssertionError(f"mesh total {stats['total_bits']} is not the float32 sum")
     want = {k: (t if stage_runs is None else stage_runs) * v for k, v in per_block.items()}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
@@ -428,7 +454,7 @@ def main_path(cfg, x, device, stage_runs=None, per_block=PER_BLOCK):
     torch.cuda.reset_peak_memory_stats()
     for _ in range(WARM_RUNS):
         t0 = time.perf_counter()
-        again, _ = batch_encode(blocks, cfg, "cbr", rate_kbps=RATE_KBPS)
+        again, _ = batch_encode(blocks, cfg, "cbr", rate_kbps=RATE_KBPS, mesh=mesh)
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
         if not (torch.equal(out.data, again.data) and torch.equal(out.size_bits, again.size_bits)):
@@ -689,9 +715,10 @@ def decode_snr(x, pcm):
     return 10 * np.log10((want ** 2).sum() / (err ** 2).sum())
 
 
-def decode_main_path(cfg, x, streams, win, sizes, device):
-    """Phase 7: returns (launch counts, warm seconds of each repeat,
-    seconds of audio, round-trip SNR in dB)."""
+def decode_main_path(cfg, x, streams, win, sizes, device, mesh=None):
+    """Phase 7 (and 10, 13, 15, 17): returns (launch counts, warm seconds
+    of each repeat, seconds of audio, round-trip SNR in dB, (pcm, bits,
+    corrupt))."""
     import torch
 
     from ulcx_torch.bitstream import decode_kernels as dk
@@ -701,7 +728,7 @@ def decode_main_path(cfg, x, streams, win, sizes, device):
     s_dev = streams.to(device)
     dk.reset_launch_counts()
     t0 = time.perf_counter()
-    pcm, bits, corrupt = batch_decode(s_dev, t, win, cfg)
+    pcm, bits, corrupt = batch_decode(s_dev, t, win, cfg, mesh=mesh)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     counts = dk.launch_counts()
@@ -717,7 +744,7 @@ def decode_main_path(cfg, x, streams, win, sizes, device):
     warm = []
     for _ in range(WARM_RUNS):
         t0 = time.perf_counter()
-        again = batch_decode(s_dev, t, win, cfg)
+        again = batch_decode(s_dev, t, win, cfg, mesh=mesh)
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
         if not all(torch.equal(u, v) for u, v in zip((pcm, bits, corrupt), again)):
@@ -727,7 +754,7 @@ def decode_main_path(cfg, x, streams, win, sizes, device):
         raise AssertionError(f"round-trip SNR {snr:.2f} dB, expected above {MIN_SNR_DB} dB")
     print(f"decode B={b} T={t} window {win} bytes: cold {cold:.3f} s, warm "
           f"{', '.join(f'{w:.3f}' for w in warm)} s, round-trip SNR {snr:.2f} dB", flush=True)
-    return counts, warm, b * t * cfg.block_size / cfg.rate_hz, snr
+    return counts, warm, b * t * cfg.block_size / cfg.rate_hz, snr, (pcm, bits, corrupt)
 
 
 def decode_cuda_vs_cpu(cfg, streams, win, devices=("cuda", "cpu")):
@@ -836,7 +863,7 @@ def large_blocks(device, card):
     streams, offs, win, sizes = pack_streams(encoded)
     print(f"B={BIG_B}, P={2 * BIG_BS}, window {win} bytes ({2 * win - 2} tokens):", flush=True)
     res.update(decode_kernels_vs_plain(cfg, streams, offs, win, device, blocks=(0, BIG_T - 1)))
-    dcounts, dwarm, audio_s, _ = decode_main_path(cfg, x, streams, win, sizes, device)
+    dcounts, dwarm, audio_s, _, _ = decode_main_path(cfg, x, streams, win, sizes, device)
     rtf_line(f"bs{BIG_BS} decode", dwarm, audio_s, dcounts, card)
     return res, counts, dcounts
 
@@ -1071,7 +1098,7 @@ def past_32768(device, card):
     res.update(decode_kernels_vs_plain(cfg, streams[:HUGE_PLAIN_B], offs[:HUGE_PLAIN_B], win,
                                        device, blocks=(0, HUGE_T - 1), plain_device="cpu"))
     torch.cuda.reset_peak_memory_stats()
-    dcounts, dwarm, audio_s, _ = decode_main_path(cfg, x, streams, win, sizes, device)
+    dcounts, dwarm, audio_s, _, _ = decode_main_path(cfg, x, streams, win, sizes, device)
     dec_peak = torch.cuda.max_memory_allocated()
     rtf_line(f"bs{HUGE_BS} decode", dwarm, audio_s, dcounts, card)
     print(f"P={p_tot}, B={HUGE_B}: peak memory encode {enc_peak / 2**30:.2f} GiB "
@@ -1187,7 +1214,7 @@ def gap_window(cfg, x, device, card, seg_rtf, seg_bits):
     peak = torch.cuda.max_memory_allocated()
     gap_rtf = rtf_line("gap encode", warm, audio_s, counts, card)
     streams, _, win, sizes = pack_streams(out)
-    dcounts, _, _, snr = decode_main_path(gcfg, x, streams, win, sizes, device)
+    dcounts, _, _, snr, _ = decode_main_path(gcfg, x, streams, win, sizes, device)
     gap_bits = int(out.size_bits.sum())
     print(f"gap vs segment, B={x.shape[0]} T={x.shape[1]}, one process: encode realtime factor "
           f"{gap_rtf:.1f}x vs {seg_rtf:.1f}x ({seg_rtf / gap_rtf:.2f}x slower), total "
@@ -1500,6 +1527,149 @@ def checkpoint_resume(cfg, xs, device):
     print(f"checkpoint on the {device}: {half} + {xs.shape[0] - half} blocks through save_carry / "
           f"load_carry give one call's bytes", flush=True)
 
+def mesh_of_one(cfg, x, encoded, decoded, streams, win, sizes, card):
+    """Phase 17 (a): ``data_mesh()`` in this process, a world of one on
+    the card over NCCL, through phase 4's and 7's checks; its blocks and
+    decode identical to theirs. Returns (encode, decode launch counts)."""
+    import torch
+
+    from ulcx_torch.parallel.mesh import data_mesh
+
+    mesh = data_mesh()
+    try:
+        print(f"mesh of one: {torch.distributed.get_backend(mesh.group)} on {mesh.device}",
+              flush=True)
+        counts, warm, audio_s, out = main_path(cfg, x, "cuda", mesh=mesh)
+        if not all(torch.equal(u, v) for u, v in zip(out, encoded)):
+            raise AssertionError("the mesh of one encodes other blocks than phase 4")
+        rtf_line("mesh of one encode", warm, audio_s, counts, card)
+        dcounts, dwarm, audio_s, _, dec = decode_main_path(cfg, x, streams, win, sizes, "cuda",
+                                                           mesh=mesh)
+        if not all(torch.equal(u, v) for u, v in zip(dec, decoded)):
+            raise AssertionError("the mesh of one decodes other pcm, bits or flags than phase 7")
+        rtf_line("mesh of one decode", dwarm, audio_s, dcounts, card)
+    finally:
+        mesh.close()
+    print("mesh of one: blocks, sizes, pcm, bits and corrupt flags identical to phases 4 and 7",
+          flush=True)
+    return counts, dcounts
+
+
+def mesh_ranks(cfg, x, encoded, ref_snr, enc_rtf, dec_rtf, card):
+    """Phase 17 (b): ``python -m ulcx_torch.graft_entry mesh`` under
+    torchrun at phase 4's shape: NCCL over a card each where two or more
+    are visible (at most MESH_MAX_RANKS), else two ranks sharing card 0
+    over gloo. Each rank's shard equals the no-mesh call on its rows; the
+    whole holds phase 11's card bounds against phase 4 (a rank's
+    analysis GEMMs sum its B/n rows in another order than B rows); the
+    all-reduced total is the float32 sum of the shards; every block
+    decodes clean. Returns (ranks, cards, rank 0's launch counts,
+    {"encode": aggregate realtime factor, "decode": ...})."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ulcx_torch import graft_entry
+
+    count = torch.cuda.device_count()
+    n = min(count, MESH_MAX_RANKS) if count >= 2 else 2
+    cards = min(n, count)
+    b, t = x.shape[:2]
+    torch.cuda.empty_cache()  # room for the ranks on card 0
+    with tempfile.TemporaryDirectory() as d:
+        np.savez(os.path.join(d, "in.npz"), x=x)
+        print(graft_entry.launch(n, ["mesh", os.path.join(d, "in.npz"), d, "cuda", MESH_RUNS],
+                                 timeout=MESH_TIMEOUT_S), end="", flush=True)
+        files = [dict(np.load(os.path.join(d, f"rank{r}.npz"))) for r in range(n)]
+
+    backend = "nccl" if count >= 2 else "gloo"
+    want_counts = {k: t * v for k, v in {**PER_BLOCK, **DEC_PER_BLOCK}.items()}
+    total = np.float32(0)
+    for r, f in enumerate(files):
+        if f["rows"].tolist() != [r * b // n, (r + 1) * b // n] or str(f["backend"]) != backend:
+            raise AssertionError(f"rank {r}: rows {f['rows']}, backend {f['backend']}")
+        if json.loads(str(f["launches"])) != want_counts:
+            raise AssertionError(f"rank {r}: launch counts {f['launches']}, expected {want_counts}")
+        for key in ("data", "size_bits", "complexity", "window_ctrl"):
+            if not np.array_equal(f[key], f[f"alone_{key}"]):
+                raise AssertionError(f"rank {r}: {key} differs from the no-mesh call on its rows")
+        if not (str(f["refuse_split"]) and str(f["refuse_device"])):
+            raise AssertionError(f"rank {r}: a refusal did not raise")
+        if f["corrupt"].any() or not np.array_equal((f["bits"] + 7) // 8 * 8, f["size_bits"]):
+            raise AssertionError(f"rank {r}: its blocks decode corrupt or to other sizes")
+        total = np.float32(total + np.float32(int(f["size_bits"].sum())))
+    if any(f["total_bits"] != total or f["total_bits"].dtype != np.float32 for f in files):
+        raise AssertionError(f"all-reduced totals {[f['total_bits'] for f in files]}, "
+                             f"float32 sum of the shards {total}")
+
+    sizes = np.concatenate([f["size_bits"] for f in files])
+    data = np.concatenate([f["data"] for f in files])
+    check_encoded(torch.from_numpy(sizes), torch.from_numpy(data), b, t, cfg, "mesh")
+    ref_sizes = encoded.size_bits.cpu().numpy()
+    if not np.array_equal(np.concatenate([f["window_ctrl"] for f in files]),
+                          encoded.window_ctrl.cpu().numpy()):
+        raise AssertionError("mesh: window control differs from phase 4's")
+    tot, tot_ref = int(sizes.sum()), int(ref_sizes.sum())
+    worst = int(np.abs(sizes - ref_sizes).max())
+    if abs(tot - tot_ref) > FLAT_SIZE_REL * tot_ref or worst > FLAT_BLOCK_BITS:
+        raise AssertionError(f"mesh: total {tot} bits vs phase 4's {tot_ref}, a block {worst} "
+                             f"bits apart")
+    n_nz = torch.cat([analyze(x[r * b // n:(r + 1) * b // n], cfg, "cuda")[1] for r in range(n)])
+    n_nz_differs = int((n_nz != analyze(x, cfg, "cuda")[1]).sum())
+    if n_nz_differs > FLAT_N_NZ_SHARE * b * t:
+        raise AssertionError(f"mesh: the coded count differs from phase 4's in {n_nz_differs} "
+                             f"blocks")
+    snr = decode_snr(x, np.concatenate([f["pcm"] for f in files]))
+    if abs(snr - ref_snr) > FLAT_SNR_DB:
+        raise AssertionError(f"mesh: round-trip SNR {snr:.2f} dB vs phase 7's {ref_snr:.2f} dB")
+    same = int(np.all(data == encoded.data.cpu().numpy(), axis=-1).sum())
+    same_size = int((sizes == ref_sizes).sum())
+    print(f"mesh: each of {n} shards equals the no-mesh call on its rows; against phase 4 window "
+          f"control identical, {same} of {b * t} blocks byte-identical, {same_size} of the same "
+          f"size, total {tot} bits vs {tot_ref} ({(tot - tot_ref) / tot_ref:+.4%}), "
+          f"largest difference of a block {worst} bits, coded count differs in {n_nz_differs} "
+          f"blocks, round-trip SNR {snr:.2f} dB vs {ref_snr:.2f} dB; all-reduced total "
+          f"{float(total):.1f} (float32)", flush=True)
+
+    audio_s = b * t * cfg.block_size / cfg.rate_hz
+    rtfs = {}
+    for label, key, one in (("encode", "encode_s", enc_rtf), ("decode", "decode_s", dec_rtf)):
+        walls = np.max([f[key] for f in files], axis=0)  # the slowest rank's, a run
+        med = float(np.median(walls))
+        rtfs[label] = audio_s / med
+        print(f"mesh {label} realtime factor {audio_s / med:.1f}x over {n} ranks (median of "
+              f"{len(walls)}: {audio_s:.1f} s of audio in {med:.3f} s, barrier to barrier; runs "
+              f"{', '.join(f'{w:.3f}' for w in walls)} s), {audio_s / med / one:.2f}x phase "
+              f"{4 if label == 'encode' else 7}'s {one:.1f}x [{card}]", flush=True)
+    print(f"mesh over {n} ranks on {cards} card{'s' if cards > 1 else ''} ({backend}: "
+          f"{', '.join(sorted({str(f['device']) for f in files}))})", flush=True)
+    if cards == 1:
+        print(f"mesh over {n} ranks on 1 card; multi-card NCCL not run", flush=True)
+    return n, cards, json.loads(str(files[0]["launches"])), rtfs
+
+
+def mesh_dryrun_and_entry(n, card):
+    """Phase 17 (c): ``dryrun_multichip(n)`` and ``entry()``'s step once
+    on the card."""
+    import torch
+
+    from ulcx_torch import graft_entry
+    from ulcx_torch.codec.encoder import cbr_bit_budget
+    from ulcx_torch.utils.config import CodecConfig
+
+    graft_entry.dryrun_multichip(n)
+    fn, args = graft_entry.entry()
+    data, size, _ = fn(*args)
+    torch.cuda.synchronize()
+    budget = int(cbr_bit_budget(CodecConfig(rate_hz=44100, n_chan=2, block_size=ENTRY_BS),
+                                RATE_KBPS))
+    if data.device.type != "cuda" or not (0 < int(size.min()) and int(size.max()) <= budget):
+        raise AssertionError(f"entry(): sizes {size.tolist()} on {data.device}")
+    print(f"entry(): one CBR-128 block step of 8 stereo bs{ENTRY_BS} streams on {data.device}, "
+          f"sizes {size.tolist()} (budget {budget}) [{card}]", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1552,7 +1722,7 @@ def main() -> int:
 
     phase("4 main path")
     counts, warm, audio_s_enc, encoded = main_path(cfg, x, "cuda")
-    rtf_line("encode", warm, audio_s_enc, counts, card)
+    enc_rtf = rtf_line("encode", warm, audio_s_enc, counts, card)
 
     phase("5 cuda vs cpu")
     cuda_vs_cpu(cfg, x[:CPU_B, :CPU_T].copy())
@@ -1567,8 +1737,8 @@ def main() -> int:
     rng_vs_plain_synthetic(2 * BS, RAGGED_B, "cuda")
 
     phase("7 decode main path")
-    dcounts, dwarm, audio_s, snr = decode_main_path(cfg, x, streams, win, sizes, "cuda")
-    rtf_line("decode", dwarm, audio_s, dcounts, card)
+    dcounts, dwarm, audio_s, snr, decoded = decode_main_path(cfg, x, streams, win, sizes, "cuda")
+    dec_rtf = rtf_line("decode", dwarm, audio_s, dcounts, card)
 
     phase("8 decode cuda vs cpu")
     decode_cuda_vs_cpu(cfg, streams, win)
@@ -1592,11 +1762,15 @@ def main() -> int:
     rate_counts = rate_paths("cuda", card)
 
     phase("15 gap window")
-    gap_counts = gap_window(cfg, x, "cuda", card, audio_s_enc / sorted(warm)[len(warm) // 2],
-                            int(encoded.size_bits.sum()))
+    gap_counts = gap_window(cfg, x, "cuda", card, enc_rtf, int(encoded.size_bits.sum()))
 
     phase("16 tools")
     tools("cuda", card)
+
+    phase("17 mesh")
+    one_mesh_counts = mesh_of_one(cfg, x, encoded, decoded, streams, win, sizes, card)
+    n_ranks, _, rank_counts, _ = mesh_ranks(cfg, x, encoded, snr, enc_rtf, dec_rtf, card)
+    mesh_dryrun_and_entry(n_ranks, card)
     phase(None)
 
     rows = [(name, SOURCE, counts[name], v) for name, v in kres.items()]
@@ -1623,7 +1797,10 @@ def main() -> int:
         row[f"plain_cpu_ms_p65536_b256_{len(HUGE_COLS)}_streams"] = huge_full[name][2]
         row["ms_p65536_b13"], row["plain_cpu_ms_p65536_b13"] = huge[name][1], huge[name][2]
         row["launches_bs32768"] = {**huge_counts, **huge_dcounts}[name]
-        for knob, c in {**fold_counts, **one_counts, **rate_counts, "gap": gap_counts}.items():
+        mesh_counts = {"mesh of one": {**one_mesh_counts[0], **one_mesh_counts[1]},
+                       f"mesh rank 0 of {n_ranks}": rank_counts}
+        for knob, c in {**fold_counts, **one_counts, **rate_counts, "gap": gap_counts,
+                        **mesh_counts}.items():
             if name in c:
                 row[f"launches {knob}"] = c[name]
         kernels.append(row)

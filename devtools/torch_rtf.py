@@ -45,7 +45,7 @@ def main(runs: int) -> int:
     x = make_corpus(cs.MAIN_B, cs.MAIN_T, cs.BS)
     _, warm, audio_s, out = cs.main_path(cfg, x, "cuda")
     streams, _, win, sizes = cs.pack_streams(out)
-    _, dwarm, _, _ = cs.decode_main_path(cfg, x, streams, win, sizes, "cuda")
+    _, dwarm, _, _, _ = cs.decode_main_path(cfg, x, streams, win, sizes, "cuda")
     print(json.dumps({"card": card, "encode_rtf": [audio_s / w for w in warm],
                       "decode_rtf": [audio_s / w for w in dwarm]}), flush=True)
     return 0

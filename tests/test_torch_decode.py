@@ -179,12 +179,3 @@ def test_fuzz_decode_block_matches_ulcx(fuzz):
     carry = tdec.DecoderCarry.init(TCFG, b, "cpu")
     pcm, _, _ = ttb.block_imdct_batched(g_coefs, g_wc, carry.lap, carry.prev_last_ss, TCFG)
     assert torch.isfinite(tdec.inverse_ms(pcm)).all()
-
-
-@pytest.mark.parametrize("change,mesh,item", [
-    ({}, object(), "A.11"),
-])
-def test_unserved_settings_raise(change, mesh, item):
-    cfg = TCodecConfig(**{**dict(rate_hz=44100, n_chan=C, block_size=N), **change})
-    with pytest.raises(NotImplementedError, match=item):
-        batch_decode(torch.zeros(2, 4096, dtype=torch.uint8), 1, 64, cfg, mesh=mesh, device="cpu")

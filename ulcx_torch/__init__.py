@@ -1,7 +1,7 @@
 """ulcx_torch — the ulcx codec ported to PyTorch and CUDA.
 
-A second implementation of the ``ulcx`` package for one NVIDIA Hopper
-GPU. ``ulcx`` (JAX/Pallas) stays the reference; each module here
+A second implementation of the ``ulcx`` package for NVIDIA Hopper
+GPUs. ``ulcx`` (JAX/Pallas) stays the reference; each module here
 mirrors the module of the same name there and is tested against it.
 
 Ported so far are the batched and the single-stream encode and decode
@@ -27,6 +27,16 @@ run on the card (``device="cuda"``) unless the caller asks for
 ``device="cpu"``; below them every function follows the device of its
 input tensors: on the CPU the kernels run their plain PyTorch versions,
 on a CUDA device the kernels.
+
+Data parallelism over GPUs: ``parallel.mesh.data_mesh`` builds one
+rank's mesh (a ``torch.distributed`` process group and a one-dimension
+``DeviceMesh`` named "data", one process a device under ``torchrun``),
+and ``batch_encode`` / ``batch_decode`` with ``mesh=`` code the rank's
+contiguous shard of the global batch, the two encode metrics all-reduced
+in ulcx's float32 form. ``graft_entry`` is the counterpart of the repo's
+``__graft_entry__.py``: ``entry()`` (one batched CBR-128 block step) and
+``dryrun_multichip(n)`` (ulcx's two dry-run phases over ``n`` ranks it
+launches under ``torchrun``), and the rank code those launches run.
 
 The runtime surface is the CLI trio, on the card:
 ``python -m ulcx_torch.tools.encode_tool`` (WAV -> ``.ulc`` through
