@@ -72,7 +72,9 @@ Phases, each of which raises on failure:
 12. single stream: ``encode_stream`` of one stream's 64 blocks (stereo
     bs2048, CBR-128): bytes identical to two calls of 32 blocks with the
     carry passed on and to ``batch_encode`` of the stream as a batch of
-    one, the walks launched (3, 3, 2, 1) times in all; ``decode_stream``
+    one with ``fold_bitstream=64`` (the plan follows the bitstream
+    batch, 64 streams either way), the walks launched (3, 3, 2, 1) times
+    in all; ``decode_stream``
     of the packed bytes in one call, launching T x (0, 1, 1, 0), and in
     two calls chained through ``(offset, carry)``: identical bits,
     corrupt flags and PCM, no corrupt block; the first 4 blocks through
@@ -88,10 +90,12 @@ Phases, each of which raises on failure:
     a ragged B=13, the plain versions on the CPU on copies of the same
     planes (on the card they would launch hundreds of thousands of small
     kernels), every kernel timed at B=256, then ``batch_encode`` CBR-128
-    (the classic ladder above P = 32768: launches T x (6, 6, 5, 1)) and
+    (above P = 32768 only the scan path's plan, ulcx's exact 16-candidate
+    ladder: launches T x (9, 9, 8, 1)) and
     ``batch_decode`` of its bytes at B=256, T=2 with the checks of
     phases 4 and 7; prints both realtime factors and the peak memory;
-14. rate paths at stereo bs256, B=13, T=2: ``rate_search="bisect"`` on
+14. rate paths at stereo bs256, B=13, T=2 (no multiple of 8: the scan
+    path's plan): ``rate_search="bisect"`` on
     the kernels (launches T x (11, 11, 10, 1)), its count, size and
     bytes from the same walk inputs identical on the card and the CPU,
     end to end within 1 % of the CPU's; ``use_pallas="off"`` on the
@@ -99,8 +103,8 @@ Phases, each of which raises on failure:
     (and, decoding, PCM, bits and corrupt flags) identical to the
     kernels'; the ladder and bisect encodes timed;
 15. gap window: ``noise_run_window="gap"`` at phase 4's shape (B=512,
-    T=8, CBR-128): launches exactly T x (4, 4, 0, 0) (the classic ladder;
-    both p3 walks run their plain gap mode on the card), every block
+    T=8, CBR-128): launches exactly T x (7, 7, 0, 0) (the scan path's
+    ladder; both p3 walks run their plain gap mode on the card), every block
     within its budget, a second run identical, the streams decoded with
     phase 7's checks; prints the gap and segment encode realtime factors
     and total sizes of this process; times the gap p3 walks on a block
@@ -139,12 +143,26 @@ Phases, each of which raises on failure:
     each from a barrier before the call to one after it on every rank)
     beside phase 4's and 7's, and how many cards took part; (c)
     ``dryrun_multichip`` over as many ranks, and ``entry()``'s block
-    step once on the card.
+    step once on the card;
+18. scan path: 16 channels x bs2048 CBR-128 (P = 32768) at B=13, T=2,
+    a batch ulcx codes on its scan path's plan: launches exactly T x
+    (9, 9, 8, 1), every block within its budget, a second run identical,
+    count, size and bytes from the same walk inputs identical on the
+    card and the CPU, a clean decode; the first 8 streams again on the
+    kernel path's plan (B=8: T x (3, 3, 2, 1)), the two totals, the
+    share of blocks the scan plan codes larger, and both round-trip
+    SNRs (the scan plan's at most 0.3 dB below). Then ``encode_block``
+    over 12 flagship blocks, launching (7, 7, 6, 1) a block, identical
+    to ``encode_stream`` of them (T=12, the scan path's plan too), and
+    ``decode_block`` of their bytes, identical to ``decode_stream``
+    (PCM, bits, corrupt flags, carry) with the record-mode FSM kernel
+    and RNG-expand launched once a block.
 
 Each phase prints the seconds it took.
 
 The second-to-last line is a JSON object with each kernel's launches on
-its main path, its largest difference from the plain version, both
+its main path (the record-mode FSM's: ``decode_block``, phase 18), its
+largest difference from the plain version, both
 times at the main path's B=512, and its bound: the bytes of its inputs
 and outputs at that shape over the card's 3.35 TB/s (no PyTorch call
 computes any of these serial walks, so ``library_ms`` is null); beside
@@ -189,6 +207,9 @@ HUGE_COLS = tuple(range(HUGE_PLAIN_B)) + tuple(range(HUGE_B - 8, HUGE_B))  # and
 # these streams: the first 13 and the last 8 (a whole tile of every kernel)
 RATE_BS, RATE_B, RATE_T = 256, 13, 2  # phase 14: the rate paths, stereo bs256
 GAP_PLAIN_B = 8  # phase 15: the gap p3 walks on the card and the CPU on 8 streams' planes
+SCAN_CHAN, SCAN_BS, SCAN_B, SCAN_T = 16, 2048, 13, 2  # phase 18: P = 32768 on the scan plan
+SCAN_KERNEL_B = 8  # phase 18: streams also coded on the kernel path's plan
+ONE_BLOCKS = 12  # phase 18: flagship blocks through encode_block and decode_block
 TOOL_SECONDS, TOOL_FILES = 30, 4  # phase 16: seconds of audio a WAV, WAVs for the batch tool
 PROFILE_BLOCKS = 8  # phase 16: the -profile: run's WAV
 CKPT_T = 32  # phase 16: blocks encoded across a checkpoint
@@ -214,7 +235,7 @@ REPLACES = {
 REDESIGNED = {"p1": "PR 4", "p2": "PR 3", "p3_size": "PR 3", "p3_materialize": "PR 3",
               "fsm": "PR 5", "fsm_place": "PR 5", "rng_expand": "PR 4", "rng": "PR 4"}
 NOTES = {
-    "fsm": "not on a main path: held against its plain version only, launched by fsm_records",
+    "fsm": "on the single-block decoder (decode_block, phase 18): launches are that run's",
     "rng": "not on a main path: held against its plain version only",
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -222,12 +243,17 @@ RAGGED_B, RAGGED_BS, RAGGED_CHAN = 13, 256, 3
 # walk launches of one CBR block step: p1 and p2 once a size round and
 # once for the final round, p3 size once a size round, p3 materialize once
 PER_BLOCK = {"p1": 3, "p2": 3, "p3_size": 2, "p3_materialize": 1}  # seeded ladder, P <= 32768
-HUGE_PER_BLOCK = {"p1": 6, "p2": 6, "p3_size": 5, "p3_materialize": 1}  # classic ladder, P = 65,536
+# the scan path's exact ladder: ceil(log16 P) rounds of sixteen candidates, each
+# two rounds of the walks' eight, then the count materialized; P = 32768 and 65,536
+SCAN_PER_BLOCK = {"p1": 9, "p2": 9, "p3_size": 8, "p3_materialize": 1}
+HUGE_PER_BLOCK = SCAN_PER_BLOCK  # P = 65,536 has no kernel plan
 BISECT_PER_BLOCK = {"p1": 11, "p2": 11, "p3_size": 10, "p3_materialize": 1}  # bisect, P = 512
-# gap noise window at P = 4096: the classic ladder's 3 size rounds and the final
-# one launch p1 and p2; both p3 walks run their plain gap mode (no kernel)
-GAP_PER_BLOCK = {"p1": 4, "p2": 4, "p3_size": 0, "p3_materialize": 0}
+# gap noise window at P = 4096: the scan path's ladder (3 rounds of sixteen) and the
+# materialization launch p1 and p2; both p3 walks run their plain gap mode (no kernel)
+GAP_PER_BLOCK = {"p1": 7, "p2": 7, "p3_size": 0, "p3_materialize": 0}
+ONE_BLOCK_PER_BLOCK = {"p1": 7, "p2": 7, "p3_size": 6, "p3_materialize": 1}  # scan path, P = 4096
 DEC_PER_BLOCK = {"fsm": 0, "fsm_place": 1, "rng_expand": 1, "rng": 0}
+DEC_BLOCK_PER_BLOCK = {"fsm": 1, "fsm_place": 0, "rng_expand": 1, "rng": 0}  # decode_block
 TRUNCATED_BYTES = 48  # ~94 tokens, fewer than any block needs
 
 
@@ -715,10 +741,10 @@ def decode_snr(x, pcm):
     return 10 * np.log10((want ** 2).sum() / (err ** 2).sum())
 
 
-def decode_main_path(cfg, x, streams, win, sizes, device, mesh=None):
-    """Phase 7 (and 10, 13, 15, 17): returns (launch counts, warm seconds
-    of each repeat, seconds of audio, round-trip SNR in dB, (pcm, bits,
-    corrupt))."""
+def decode_main_path(cfg, x, streams, win, sizes, device, mesh=None, min_snr=MIN_SNR_DB):
+    """Phase 7 (and 10, 13, 15, 17, 18): returns (launch counts, warm
+    seconds of each repeat, seconds of audio, round-trip SNR in dB, (pcm,
+    bits, corrupt)); ``min_snr`` None checks no SNR floor."""
     import torch
 
     from ulcx_torch.bitstream import decode_kernels as dk
@@ -750,8 +776,8 @@ def decode_main_path(cfg, x, streams, win, sizes, device, mesh=None):
         if not all(torch.equal(u, v) for u, v in zip((pcm, bits, corrupt), again)):
             raise AssertionError("a second decode gave other results")
     snr = decode_snr(x, pcm.cpu().numpy())
-    if not snr > MIN_SNR_DB:
-        raise AssertionError(f"round-trip SNR {snr:.2f} dB, expected above {MIN_SNR_DB} dB")
+    if min_snr is not None and not snr > min_snr:
+        raise AssertionError(f"round-trip SNR {snr:.2f} dB, expected above {min_snr} dB")
     print(f"decode B={b} T={t} window {win} bytes: cold {cold:.3f} s, warm "
           f"{', '.join(f'{w:.3f}' for w in warm)} s, round-trip SNR {snr:.2f} dB", flush=True)
     return counts, warm, b * t * cfg.block_size / cfg.rate_hz, snr, (pcm, bits, corrupt)
@@ -936,6 +962,8 @@ def folded_encode(cfg, x, ref, ref_snr, device, card):
 def single_stream(cfg, device, card):
     """Phase 12: encode_stream and decode_stream of one stream; returns
     {entry point: launch counts}."""
+    import dataclasses
+
     import torch
     from bench import make_corpus
     from ulcx_torch.bitstream import decode_kernels as dk
@@ -956,7 +984,8 @@ def single_stream(cfg, device, card):
     check_encoded(out.size_bits[None], out.data[None], 1, ONE_T, cfg, "encode_stream")
     head, carry = encode_stream(x[: ONE_T // 2], cfg, "cbr", **kw)
     tail, _ = encode_stream(x[ONE_T // 2 :], cfg, "cbr", carry=carry, **kw)
-    row, _ = batch_encode(x[None], cfg, "cbr", **kw)
+    # as a batch of one, folded as encode_stream folds it (the same plan)
+    row, _ = batch_encode(x[None], dataclasses.replace(cfg, fold_bitstream=ONE_T), "cbr", **kw)
     for name, a, h, tl, r in zip(out._fields, out, head, tail, row):
         if not torch.equal(torch.cat([h, tl]), a):
             raise AssertionError(f"encode_stream: {name} changes when the stream is coded in halves")
@@ -970,7 +999,7 @@ def single_stream(cfg, device, card):
         warm.append(time.perf_counter() - t0)
         if not torch.equal(again.data, out.data):
             raise AssertionError("encode_stream: a second run gave other bytes")
-    print(f"encode_stream T={ONE_T}: identical in halves and as a batch of one, total "
+    print(f"encode_stream T={ONE_T}: identical in halves and as a folded batch of one, total "
           f"{int(out.size_bits.sum())} bits", flush=True)
     rtf_line("encode_stream", warm, audio_s, counts, card)
     few = ONE_CPU_T
@@ -1140,8 +1169,8 @@ def rate_paths(device, card):
     blk, _ = analyze(x[:, :1].copy(), cfg, device)
     fb = fe.prepare_fast(blk, cfg)
     budget = cbr_bit_budget(cfg, RATE_KBPS).expand(RATE_B).to(torch.int32)
-    got = fe.search_materialize_fast(fb, blk.n_nz, budget.to(device), bcfg, max_block_bytes(cfg))
-    want_c = fe.search_materialize_fast(type(fb)(*(v if v is None else v.cpu() for v in fb)),
+    got = fe.search_materialize_scan(fb, blk.n_nz, budget.to(device), bcfg, max_block_bytes(cfg))
+    want_c = fe.search_materialize_scan(type(fb)(*(v if v is None else v.cpu() for v in fb)),
                                         blk.n_nz.cpu(), budget,
                                         bcfg, max_block_bytes(cfg))
     for name, a, b_ in zip(("count", "size", "bytes"), got, want_c):
@@ -1268,6 +1297,138 @@ def gap_window(cfg, x, device, card, seg_rtf, seg_bits):
               f"on the card and the CPU in every (stream, candidate) but {int(ties.sum())} whose "
               f"noise codes the devices' exp put apart", flush=True)
     return counts
+
+
+def multichannel(b, t, c, n):
+    """[b, t, c, n]: c / 2 stereo corpus streams side by side per stream."""
+    from bench import make_corpus
+
+    s = make_corpus(b * c // 2, t, n)
+    return s.reshape(b, c // 2, t, 2, n).transpose(0, 2, 1, 3, 4).reshape(b, t, c, n).copy()
+
+
+def scan_path(device, card):
+    """Phase 18: ulcx's scan path. 16 channels x bs2048 CBR-128 (P = 32768)
+    at B = 13, T = 2, which takes the scan path's plan: launches T x
+    SCAN_PER_BLOCK, budgets, a second run identical (main_path), count,
+    size and bytes from the same walk inputs identical on the card and
+    the CPU, a clean decode; its total beside the kernel path's plan on
+    the first SCAN_KERNEL_B streams. Then encode_block over ONE_BLOCKS
+    flagship blocks against encode_stream of them (T = 12, the scan
+    path's plan too), and decode_block against decode_stream of their
+    bytes, launching the record-mode FSM once a block. Returns {path:
+    launch counts}."""
+    import torch
+    from bench import make_corpus
+    from ulcx_torch.analysis.block import map_leaves
+    from ulcx_torch.bitstream import decode_kernels as dk
+    from ulcx_torch.bitstream import encode_kernels as ek
+    from ulcx_torch.bitstream import fast_encode as fe
+    from ulcx_torch.codec.decoder import DecoderCarry, decode_block, decode_stream
+    from ulcx_torch.codec.encoder import (cbr_bit_budget, encode_block, encode_stream,
+                                          init_carry_batched, max_block_bytes)
+    from ulcx_torch.parallel.mesh import batch_encode
+    from ulcx_torch.utils.config import CodecConfig
+
+    cfg = CodecConfig(rate_hz=44100, n_chan=SCAN_CHAN, block_size=SCAN_BS)
+    x = multichannel(SCAN_B, SCAN_T, SCAN_CHAN, SCAN_BS)
+    print(f"{SCAN_CHAN} ch x bs{SCAN_BS} (P = {SCAN_CHAN * SCAN_BS}), B={SCAN_B}, T={SCAN_T}, "
+          "the scan path's plan:", flush=True)
+    counts, warm, audio_s, out = main_path(cfg, x, device, per_block=SCAN_PER_BLOCK)
+    rtf_line(f"{SCAN_CHAN} ch bs{SCAN_BS} scan-plan encode", warm, audio_s, counts, card)
+    blk, _ = analyze(x[:, :1].copy(), cfg, device)
+    fb = fe.prepare_fast(blk, cfg)
+    budget = cbr_bit_budget(cfg, RATE_KBPS).expand(SCAN_B).to(torch.int32)
+    t0 = time.perf_counter()
+    want_c = fe.search_materialize_scan(type(fb)(*(v if v is None else v.cpu() for v in fb)),
+                                        blk.n_nz.cpu(), budget, cfg, max_block_bytes(cfg))
+    cpu_s = time.perf_counter() - t0
+    got = fe.search_materialize_scan(fb, blk.n_nz, budget.to(device), cfg, max_block_bytes(cfg))
+    for name, a, b_ in zip(("count", "size", "bytes"), got, want_c):
+        if not torch.equal(a.cpu(), b_):
+            raise AssertionError(f"scan path: {name} differs between the card and the CPU")
+    print(f"scan path: from the same walk inputs count, size and bytes identical on the card and "
+          f"the CPU (CPU {cpu_s:.1f} s)", flush=True)
+    streams, _, win, sizes = pack_streams(out)
+    dcounts, _, _, snr, (pcm, _, _) = decode_main_path(cfg, x, streams, win, sizes, device,
+                                                       min_snr=None)
+
+    ek.reset_launch_counts()
+    kern, _ = batch_encode(x[:SCAN_KERNEL_B], cfg, "cbr", rate_kbps=RATE_KBPS)
+    torch.cuda.synchronize()
+    kcounts = ek.launch_counts()
+    if kcounts != {k: SCAN_T * v for k, v in PER_BLOCK.items()}:
+        raise AssertionError(f"kernel plan launch counts {kcounts}")
+    check_encoded(kern.size_bits, kern.data, SCAN_KERNEL_B, SCAN_T, cfg, "kernel plan")
+    k_streams, _, k_win, k_sizes = pack_streams(kern)
+    _, _, _, k_snr, _ = decode_main_path(cfg, x[:SCAN_KERNEL_B], k_streams, k_win, k_sizes, device,
+                                         min_snr=None)
+    s_snr = decode_snr(x[:SCAN_KERNEL_B], pcm[:SCAN_KERNEL_B].cpu().numpy())
+    if not s_snr >= k_snr - 0.3:
+        raise AssertionError(f"scan plan SNR {s_snr:.2f} dB vs the kernel plan's {k_snr:.2f} dB")
+    scan8 = out.size_bits[:SCAN_KERNEL_B]
+    tot_s, tot_k = int(scan8.sum()), int(kern.size_bits.sum())
+    more = float((scan8 > kern.size_bits).float().mean())
+    print(f"first {SCAN_KERNEL_B} streams: scan plan {tot_s} bits vs kernel plan {tot_k} "
+          f"({(tot_s - tot_k) / tot_k:+.4%}); the scan plan codes more in {more:.1%} of blocks, "
+          f"less in {float((scan8 < kern.size_bits).float().mean()):.1%}; round-trip SNR "
+          f"{s_snr:.2f} vs {k_snr:.2f} dB (all {SCAN_B}: {snr:.2f} dB) [{card}]", flush=True)
+
+    # one flagship stream, block by block on ulcx's single-block forms
+    fcfg = CodecConfig(rate_hz=44100, n_chan=2, block_size=BS)
+    xs = make_corpus(1, ONE_BLOCKS, BS)[0]
+    kw = {"rate_kbps": RATE_KBPS}
+    ek.reset_launch_counts()
+    whole, _ = encode_stream(xs, fcfg, "cbr", **kw)
+    torch.cuda.synchronize()
+    s_counts = ek.launch_counts()
+    if s_counts != ONE_BLOCK_PER_BLOCK:
+        raise AssertionError(f"encode_stream T={ONE_BLOCKS} launch counts {s_counts}")
+    carry = map_leaves(lambda v: v[0], init_carry_batched(fcfg, 1, device))
+    blocks = torch.from_numpy(xs).to(device)
+    ek.reset_launch_counts()
+    steps = []
+    for j in range(ONE_BLOCKS):
+        carry, enc = encode_block(carry, blocks[j], fcfg, "cbr", **kw)
+        steps.append(enc)
+    torch.cuda.synchronize()
+    b_counts = ek.launch_counts()
+    if b_counts != {k: ONE_BLOCKS * v for k, v in ONE_BLOCK_PER_BLOCK.items()}:
+        raise AssertionError(f"encode_block launch counts {b_counts}")
+    for name in whole._fields:
+        if not torch.equal(torch.stack([getattr(e, name) for e in steps]), getattr(whole, name)):
+            raise AssertionError(f"encode_block: {name} differs from encode_stream's")
+    print(f"encode_block x {ONE_BLOCKS}: identical to encode_stream T={ONE_BLOCKS} (both the scan "
+          f"path's plan), launches {b_counts}", flush=True)
+
+    one_streams, _, one_win, one_sizes = pack_streams(type(whole)(*(v[None] for v in whole)))
+    stream = one_streams[0].to(device)
+    pcm, bits, corrupt, (_, dcarry) = decode_stream(stream, ONE_BLOCKS, one_win, fcfg)
+    dcarry_b = DecoderCarry.init(fcfg, 1, device)
+    c = DecoderCarry(*(v[0] for v in dcarry_b))
+    dk.reset_launch_counts()
+    off, outs = 0, []
+    for j in range(ONE_BLOCKS):
+        p, c, nbits, bad = decode_block(stream[off: off + one_win], c, fcfg)
+        outs.append((p, nbits, bad))
+        off += (int(nbits) + 7) // 8
+    torch.cuda.synchronize()
+    d_counts = dk.launch_counts()
+    if d_counts != {k: ONE_BLOCKS * v for k, v in DEC_BLOCK_PER_BLOCK.items()}:
+        raise AssertionError(f"decode_block launch counts {d_counts}")
+    for name, got_, want_ in (("pcm", torch.stack([o[0] for o in outs]), pcm),
+                              ("bits", torch.stack([o[1] for o in outs]), bits),
+                              ("corrupt", torch.stack([o[2] for o in outs]), corrupt)):
+        if not torch.equal(got_, want_):
+            raise AssertionError(f"decode_block: {name} differs from decode_stream's")
+    if not all(torch.equal(a, b_) for a, b_ in zip(c, dcarry)) or bool(corrupt.any()):
+        raise AssertionError("decode_block: the carry differs from decode_stream's, or a block is corrupt")
+    if not torch.equal(((bits + 7) // 8 * 8).cpu(), one_sizes[0]):
+        raise AssertionError("decode_block: bits, rounded up to bytes, differ from the sizes")
+    print(f"decode_block x {ONE_BLOCKS}: pcm, bits, corrupt flags and carry identical to "
+          f"decode_stream, launches {d_counts}", flush=True)
+    return {"scan path": counts, "scan path decode": dcounts, "encode_block": b_counts,
+            "decode_block": d_counts}
 
 
 def plain_entry_bytes(fn, args, entries):
@@ -1771,10 +1932,15 @@ def main() -> int:
     one_mesh_counts = mesh_of_one(cfg, x, encoded, decoded, streams, win, sizes, card)
     n_ranks, _, rank_counts, _ = mesh_ranks(cfg, x, encoded, snr, enc_rtf, dec_rtf, card)
     mesh_dryrun_and_entry(n_ranks, card)
+
+    phase("18 scan path")
+    scan_counts = scan_path("cuda", card)
     phase(None)
 
     rows = [(name, SOURCE, counts[name], v) for name, v in kres.items()]
-    rows += [(name, DEC_SOURCE, dcounts[name], v) for name, v in dres.items()]
+    # the record-mode FSM's main path is the single-block decoder's
+    rows += [(name, DEC_SOURCE, (scan_counts["decode_block"] if name == "fsm" else dcounts)[name], v)
+             for name, v in dres.items()]
     kernels = []
     for name, source, launches, (err, ms, plain_ms, nbytes) in rows:
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1800,7 +1966,7 @@ def main() -> int:
         mesh_counts = {"mesh of one": {**one_mesh_counts[0], **one_mesh_counts[1]},
                        f"mesh rank 0 of {n_ranks}": rank_counts}
         for knob, c in {**fold_counts, **one_counts, **rate_counts, "gap": gap_counts,
-                        **mesh_counts}.items():
+                        **mesh_counts, **scan_counts}.items():
             if name in c:
                 row[f"launches {knob}"] = c[name]
         kernels.append(row)

@@ -270,7 +270,8 @@ def test_transform_backends_match_dense_on_card(dev, backend, n):
                                          ({"flat_stream": True}, 1)])
 def test_folded_encode_on_card_matches_block_loop(dev, change, runs):
     """A ragged B = 13: the folded batches (26, 52) are no multiple of
-    the walks' stream tile either."""
+    the walks' stream tile either, nor of 8, so every form takes the
+    scan path's plan (7, 7, 6, 1) at P = 512."""
     t = 4
     x = torch.from_numpy(make_corpus(13, t, N))
     want, _ = batch_encode(x, CFG, "cbr", rate_kbps=128.0, device=dev)
@@ -278,7 +279,7 @@ def test_folded_encode_on_card_matches_block_loop(dev, change, runs):
     got, _ = batch_encode(x, CodecConfig(rate_hz=44100, n_chan=C, block_size=N, **change), "cbr",
                           rate_kbps=128.0, device=dev)
     torch.cuda.synchronize()
-    assert ek.launch_counts() == {"p1": 3 * runs, "p2": 3 * runs, "p3_size": 2 * runs,
+    assert ek.launch_counts() == {"p1": 7 * runs, "p2": 7 * runs, "p3_size": 6 * runs,
                                   "p3_materialize": runs}
     assert torch.equal(got.window_ctrl, want.window_ctrl)
     if "fold_bitstream" in change:
@@ -295,12 +296,15 @@ def test_folded_encode_on_card_matches_block_loop(dev, change, runs):
 
 
 def test_single_stream_round_trip_on_card(dev):
-    t = 8
+    """Calls of 8 and 16 blocks and the folded batch of one take the
+    kernel path's plan alike (the plan follows the bitstream batch)."""
+    t = 16
     x = make_corpus(4, t, N)[3]
     out, _ = encode_stream(x, CFG, "cbr", rate_kbps=128.0)
-    head, carry = encode_stream(x[:3], CFG, "cbr", rate_kbps=128.0)
-    tail, _ = encode_stream(x[3:], CFG, "cbr", carry=carry, rate_kbps=128.0)
-    row, _ = batch_encode(x[None], CFG, "cbr", rate_kbps=128.0)
+    head, carry = encode_stream(x[:8], CFG, "cbr", rate_kbps=128.0)
+    tail, _ = encode_stream(x[8:], CFG, "cbr", carry=carry, rate_kbps=128.0)
+    row, _ = batch_encode(x[None], dataclasses.replace(CFG, fold_bitstream=t), "cbr",
+                          rate_kbps=128.0)
     for a, h, tl, r in zip(out, head, tail, row):
         assert a.device.type == "cuda"
         assert torch.equal(torch.cat([h, tl]), a) and torch.equal(r[0], a)
@@ -423,12 +427,12 @@ def test_gap_window_on_card(dev):
     ek.reset_launch_counts()
     out, _ = batch_encode(x, gcfg, "abr", rate_kbps=128.0, avg_complexity=0.5, device=dev)
     torch.cuda.synchronize()
-    assert ek.launch_counts() == {"p1": 3 * t, "p2": 3 * t, "p3_size": 0, "p3_materialize": 0}
+    assert ek.launch_counts() == {"p1": 7 * t, "p2": 7 * t, "p3_size": 0, "p3_materialize": 0}
     _, blk = analyze_block_batched(init_carry_batched(gcfg, 13, dev), x[:, 0].to(dev), gcfg)
     fb = fe.prepare_fast(blk, gcfg)
     budget = cbr_bit_budget(gcfg, 128.0).expand(13).to(torch.int32)
-    got = fe.search_materialize_fast(fb, blk.n_nz, budget.to(dev), gcfg, max_block_bytes(gcfg))
-    want = fe.search_materialize_fast(type(fb)(*(v.cpu() for v in fb)), blk.n_nz.cpu(), budget,
+    got = fe.search_materialize_scan(fb, blk.n_nz, budget.to(dev), gcfg, max_block_bytes(gcfg))
+    want = fe.search_materialize_scan(type(fb)(*(v.cpu() for v in fb)), blk.n_nz.cpu(), budget,
                                       gcfg, max_block_bytes(gcfg))
     for a, b_ in zip(got, want):
         assert torch.equal(a.cpu(), b_)

@@ -46,6 +46,7 @@ from ulcx_torch.bitstream import fast_encode as tfe
 from ulcx_torch.codec.encoder import encode_stream
 from ulcx_torch.parallel.mesh import batch_encode
 from ulcx_torch.utils.config import CodecConfig as TCodecConfig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 C = 2
 GAP = dict(rate_hz=44100, n_chan=C, noise_run_window="gap")
@@ -146,7 +147,7 @@ def test_bisect_matches_cbr_search(walk_inputs, kbps):
     max_bytes = 2 * C * n
     budget = int(n * kbps * 1000.0 / 44100.0)
     b = len(bds)
-    n_out, size, data = tfe.search_materialize_fast(
+    n_out, size, data = tfe.search_materialize_scan(
         fbt, torch.from_numpy(np.array(stacked.n_nz)), torch.full((b,), budget, dtype=torch.int32),
         tcfg, max_bytes)
     for i, bd in enumerate(bds):
@@ -205,8 +206,9 @@ def test_drivers_give_the_block_loops_bytes(x):
 
 
 def test_no_p3_kernel(monkeypatch, x):
-    """A gap block step calls p1 and p2 three times each (P = 512: two
-    size rounds and the final one) and neither p3 kernel."""
+    """A gap block step calls p1 and p2 seven times each (P = 512: the
+    scan path's ladder, three rounds of sixteen candidates as two of
+    eight, and the count materialized) and neither p3 kernel."""
     counts = dict.fromkeys(ek.Walks._fields, 0)
 
     def counting(name, fn):
@@ -219,5 +221,5 @@ def test_no_p3_kernel(monkeypatch, x):
         *(counting(k, f) for k, f in zip(ek.Walks._fields, ek.KERNEL_WALKS))))
     batch_encode(torch.from_numpy(x[:3, :1].copy()), TCodecConfig(**KW), "cbr", device="cpu",
                  **MODES["cbr"])
-    assert counts == {"p1": 3, "p2": 3, "p3_size": 0, "p3_materialize": 0}
+    assert counts == {"p1": 7, "p2": 7, "p3_size": 0, "p3_materialize": 0}
 

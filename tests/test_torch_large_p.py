@@ -46,6 +46,7 @@ from ulcx_torch.codec.encoder import init_carry_batched as t_init
 from ulcx_torch.codec.encoder import max_block_bytes
 from ulcx_torch.parallel.mesh import batch_decode, batch_encode
 from ulcx_torch.utils.config import CodecConfig as TCodecConfig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, C, T = 2048, 32, 2
 P = N * C

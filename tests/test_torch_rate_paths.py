@@ -9,12 +9,17 @@ from ulcx's own ``prepare_fast`` output it must find the count ulcx's
 ``synth_block`` blocks, P = 512). End to end, ulcx honours ``bisect`` on
 its scan path: window control and coded counts exact, total size
 within 1 % and round-trip SNR within 0.3 dB (eight bs256 streams, CBR
-and ABR). ``use_pallas="off"`` runs the plain walks; the wrappers of the
-kernels run the same plain versions on CPU tensors, so on the CPU its
-bytes and PCM are identical to the default's, and it must not call the
-wrappers at all. The walk counts of a block step are (ceil(log2 P) + 2,
-ceil(log2 P) + 2, ceil(log2 P) + 1, 1) for bisect, (3, 3, 2, 1) for the
-ladder.
+and ABR, both packages on the scan path's plan, ``use_pallas="off"``;
+the kernel path's plan ignores ``rate_search``, as ulcx's does).
+``use_pallas="off"`` runs the plain walks; the wrappers of the kernels
+run the same plain versions on CPU tensors, so on the CPU its bytes and
+PCM are identical to the default's wherever both take the same plan
+(a batch that is no multiple of 8), and it must not call the wrappers
+at all. The walk counts of a block step are (ceil(log2 P) + 2,
+ceil(log2 P) + 2, ceil(log2 P) + 1, 1) for bisect, (7, 7, 6, 1) for the
+scan path's ladder at P = 512 (three rounds of sixteen candidates, each
+two rounds of the walks' eight, and the count materialized) and
+(3, 3, 2, 1) for the kernel path's seeded ladder.
 """
 
 import math
@@ -36,6 +41,7 @@ from ulcx_torch.bitstream import encode_kernels as ek
 from ulcx_torch.bitstream import fast_encode as tfe
 from ulcx_torch.parallel.mesh import batch_decode, batch_encode
 from ulcx_torch.utils.config import CodecConfig as TCodecConfig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, C = 256, 2
 P = N * C
@@ -65,7 +71,7 @@ def test_bisect_matches_cbr_search(blocks, kbps):
     fb = jfe.prepare_fast(stacked, cfg)
     fbt = tfe.FastBlockData(*(torch.from_numpy(np.array(x)) for x in fb))
     n_nz = torch.from_numpy(np.array(stacked.n_nz))
-    n_out, size, data = tfe.search_materialize_fast(
+    n_out, size, data = tfe.search_materialize_scan(
         fbt, n_nz, torch.full((len(WCS),), budget, dtype=torch.int32), tcfg, MAX_BYTES)
 
     search = jax.jit(lambda bd, nz: _cbr_search(bd, nz, jnp.int32(budget), cfg))
@@ -96,13 +102,14 @@ def _counting(monkeypatch):
     return counts
 
 
-@pytest.mark.parametrize("search,want", [
-    ("bisect", (N_ITER + 1, N_ITER + 1, N_ITER, 1)),
-    ("ladder", (3, 3, 2, 1)),
+@pytest.mark.parametrize("search,b,want", [
+    ("bisect", 3, (N_ITER + 1, N_ITER + 1, N_ITER, 1)),
+    ("ladder", 3, (7, 7, 6, 1)),  # the scan path's exact ladder
+    ("ladder", 8, (3, 3, 2, 1)),  # the kernel path's seeded ladder
 ])
-def test_walks_per_block_step(monkeypatch, search, want):
+def test_walks_per_block_step(monkeypatch, search, b, want):
     counts = _counting(monkeypatch)
-    x = _signals(2)[:3]
+    x = _signals(2)[:b]
     tcfg = TCodecConfig(**KW, rate_search=search)
     batch_encode(torch.from_numpy(x), tcfg, "cbr", device="cpu", rate_kbps=128.0)
     assert tuple(counts.values()) == tuple(2 * w for w in want)
@@ -115,10 +122,12 @@ def x():
 
 @pytest.mark.parametrize("mode", ["cbr", "abr"])
 def test_bisect_end_to_end_matches_ulcx(x, mode):
-    """Against ulcx's scan path with rate_search="bisect"."""
+    """Against ulcx's scan path with rate_search="bisect", both packages
+    configured alike (at eight streams "auto" would take the kernel
+    path's plan, which ignores rate_search)."""
     kw = MODES[mode]
     cfg = CodecConfig(**KW, rate_search="bisect", use_pallas="off")
-    tcfg = TCodecConfig(**KW, rate_search="bisect")
+    tcfg = TCodecConfig(**KW, rate_search="bisect", use_pallas="off")
     want, _ = jax.jit(lambda b: j_batch_encode(b, cfg, mode, **kw))(jnp.asarray(x))
     got, _ = batch_encode(torch.from_numpy(x), tcfg, mode, device="cpu", **kw)
     w_sizes, w_data = np.asarray(want.size_bits), np.asarray(want.data)
@@ -140,8 +149,10 @@ def _raising(*_):
 
 @pytest.mark.parametrize("search", ["ladder", "bisect"])
 def test_off_matches_default(monkeypatch, x, search):
-    """Bytes and PCM of use_pallas="off" == the default's on the CPU, and
-    "off" reaches none of the kernels' wrappers."""
+    """Bytes and PCM of use_pallas="off" == the default's on the CPU at
+    four streams, where both take the scan path's plan (the kernels'
+    wrappers, the plain walks), and "off" reaches none of the kernels'
+    wrappers."""
     kw = MODES["cbr"]
     xs = torch.from_numpy(x[:4, :2])
     base, _ = batch_encode(xs, TCodecConfig(**KW, rate_search=search), "cbr", device="cpu", **kw)

@@ -36,6 +36,7 @@ from ulcx_torch.analysis.block import carry_from_numpy, carry_to_numpy
 from ulcx_torch.codec import decoder as tdec
 from ulcx_torch.codec import encoder as tenc
 from ulcx_torch.utils.config import CodecConfig as TCodecConfig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, C, T = 256, 2, 16
 KW = dict(rate_hz=44100, n_chan=C, block_size=N, use_pallas="on")
@@ -171,11 +172,16 @@ def test_encode_stream_continues_from_ulcx_carry(x, ulcx_enc):
 
 
 def test_encode_block_steps_equal_encode_stream(x, port_enc):
+    """encode_block is ulcx's single-block form, on the scan path's plan
+    whatever use_pallas says: its steps give the bytes of encode_stream
+    of three blocks, which takes that plan too (3 is no multiple of 8)."""
+    scan = dataclasses.replace(TCFG, use_pallas="auto")
+    want, _ = tenc.encode_stream(x[:3], scan, "cbr", device="cpu", **RATE)
     carry = jax.tree_util.tree_map(lambda v: v[0], tenc.init_carry_batched(TCFG, 1, "cpu"))
     for j in range(3):
         carry, enc = tenc.encode_block(carry, torch.from_numpy(x[j]), TCFG, "cbr", **RATE)
         assert enc.size_bits.shape == () and carry.sample_prev.shape == (C, N)
-        for g, w in zip(enc, port_enc[0]):
+        for g, w in zip(enc, want):
             assert torch.equal(g, w[j])
 
 

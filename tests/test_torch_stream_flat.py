@@ -29,6 +29,7 @@ from ulcx_torch.analysis.block import carry_from_numpy, carry_to_numpy
 from ulcx_torch.codec import encoder as tenc
 from ulcx_torch.parallel.mesh import batch_encode
 from ulcx_torch.utils.config import CodecConfig as TCodecConfig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, B, T = 256, 8, 4
 MODES = {"cbr": {"rate_kbps": 128.0}, "vbr": {"quality": 50.0}}

@@ -38,6 +38,7 @@ from ulcx_torch.tools.batch_tool import main as batch_main
 from ulcx_torch.tools.decode_tool import main as decode_main
 from ulcx_torch.tools.decode_tool import pcm_to_int
 from ulcx_torch.tools.encode_tool import main as encode_main
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N = 256
 FORMATS = {"PCM8": (8, 1), "PCM16": (16, 1), "PCM24": (24, 1), "FLOAT32": (32, 3)}
@@ -205,7 +206,9 @@ def test_cbr_budget_and_batch_tool(tmp_path):
     outs = []
     for p in paths:
         outs.append(p[:-4] + ".ulc")
-        assert encode_main(["e", p, outs[-1], "128", f"-blocksize:{N}"], device="cpu") == 0
+        # eight blocks a call: the tool pads the last chunk to it, as ulcx's does
+        assert encode_main(["e", p, outs[-1], "128", f"-blocksize:{N}", "-chunk:8"],
+                           device="cpu") == 0
         hdr = UlcHeader.unpack(open(outs[-1], "rb").read())
         assert hdr.max_block_size * 8 <= int(N * 128.0 * 1000.0 / 44100.0)
     out_dir = str(tmp_path / "batch")
@@ -222,7 +225,7 @@ def test_error_paths(tmp_path, capsys):
     stream (-1: exit 255 from the command line, chip_smoke.py phase 16)."""
     wav, ulc = str(tmp_path / "in.wav"), str(tmp_path / "a.ulc")
     _write(wav, _tone(5))
-    assert encode_main(["e", wav, ulc, "128", f"-blocksize:{N}"], device="cpu") == 0
+    assert encode_main(["e", wav, ulc, "128", f"-blocksize:{N}", "-chunk:8"], device="cpu") == 0
     capsys.readouterr()
     cases = [
         (encode_main, ["e", wav, str(tmp_path / "z.ulc"), "0"], 1, "ERROR: Invalid coding rate"),

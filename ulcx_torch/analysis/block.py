@@ -1,7 +1,9 @@
-"""Encoder state, the analyzed-block record, and M/S.
+"""Encoder state, the analyzed-block record, M/S, and one stream's block analysis.
 
-Port of the data types of ``ulcx.analysis.block`` with the stream batch
-written out: every leaf has a leading [B]. ``carry_from_numpy`` and
+Port of ``ulcx.analysis.block`` with the stream batch written out: every
+leaf has a leading [B]. ``analyze_block`` is ulcx's single-stream form,
+its leaves without the batch axis, run as a batch of one through
+``analysis.batched.analyze_block_batched``. ``carry_from_numpy`` and
 ``carry_to_numpy`` move an ``ulcx`` carry (its leaves as numpy arrays)
 into the port and back, so a stream begun in one package continues in
 the other with the same state.
@@ -48,6 +50,24 @@ class AnalyzedBlock(NamedTuple):
     importance: torch.Tensor    # [B, C, N] f32 masked importance (rank key)
     complexity: torch.Tensor    # [B] f32
     n_nz: torch.Tensor          # [B] int32 (codeable coefficient count)
+
+
+def map_leaves(fn, x):
+    """``fn`` over every tensor leaf of a (possibly nested) NamedTuple."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    return type(x)(*(map_leaves(fn, leaf) for leaf in x))
+
+
+def analyze_block(carry: EncoderCarry, new_block: torch.Tensor, cfg: CodecConfig):
+    """One block of one stream (ulcx ``analysis.block.analyze_block``):
+    carry without a batch axis, new_block [C, N] deinterleaved PCM.
+    Returns (new carry, AnalyzedBlock) with ulcx's unbatched leaves,
+    computed where ``new_block`` lies."""
+    from ulcx_torch.analysis.batched import analyze_block_batched  # it imports this module
+
+    carry, blk = analyze_block_batched(map_leaves(lambda x: x[None], carry), new_block[None], cfg)
+    return map_leaves(lambda x: x[0], carry), map_leaves(lambda x: x[0], blk)
 
 
 def carry_from_numpy(carry, device="cuda") -> EncoderCarry:

@@ -13,7 +13,8 @@ part of the walk. ``fsm_records`` and ``records_to_flags`` are ulcx's
 two-step API: the kernel's record mode (``decode_kernels.fsm``), and
 the placement as one scatter into a zeroed plane
 (``decode_kernels.place_records``, also the placing mode's plain
-version).
+version). ``bitstream.decode`` runs the record mode for ulcx's
+single-block decoder.
 
 The public functions keep ulcx's signatures and [B, ...] layouts; the
 kernels read and write token- and position-major planes ([T, B],
@@ -60,7 +61,12 @@ def walks(cfg: CodecConfig) -> dk.Walks:
     plain versions on CPU tensors and launch the kernels on CUDA ones),
     or with ``use_pallas="off"`` the plain versions wherever the tensors
     lie, launching no kernel."""
-    return dk.PLAIN_WALKS if cfg.use_pallas == "off" else dk.KERNEL_WALKS
+    return walks_for(cfg.use_pallas)
+
+
+def walks_for(use_pallas: str) -> dk.Walks:
+    """``walks`` from the one setting it reads."""
+    return dk.PLAIN_WALKS if use_pallas == "off" else dk.KERNEL_WALKS
 
 
 def fsm_records(windows: torch.Tensor, cfg: CodecConfig):

@@ -1,16 +1,26 @@
 """Kernel-backed encode pass: batched rate search and materialization.
 
-Port of ``ulcx.bitstream.fast_encode``. ``prepare_fast`` packs an
-analyzed block into the walks' per-position planes (segment geometry,
-noise and HF-extension decisions, monotone importance keys); one stable
-sort of the keys gives every candidate count its keep threshold
-(``_tc_of``); the seeded ladder (``_bracket_search``) narrows the
-coefficient count with size-only rounds, and the final round prices
-and packs eight candidates at once (``search_materialize_fast``). With
-``rate_search="bisect"`` the reference's bisection (``_bisect``) prices
-one count a round and the count it finds is then materialized.
-``walks(cfg)`` picks the walks every function here runs: the kernels,
-or with ``use_pallas="off"`` their plain versions on any device.
+Port of ``ulcx.bitstream.fast_encode`` and of the rate search of
+ulcx's scan path (``ulcx.codec.encoder._cbr_search_ladder`` and
+``_cbr_search``). ``prepare_fast`` packs an analyzed block into the
+walks' per-position planes (segment geometry, noise and HF-extension
+decisions, monotone importance keys); one stable sort of the keys gives
+every candidate count its keep threshold (``_tc_of``). Two plans search
+the coefficient count of a CBR or ABR block, both on the same walks:
+
+- the kernel path's (``search_materialize_fast``): the seeded ladder
+  (``_bracket_search``) narrows the count with size-only rounds, and the
+  final round prices and packs eight candidates at once;
+- the scan path's (``search_materialize_scan``): ulcx's exact ladder
+  (``_cbr_search_ladder``, sixteen candidates a round for ceil(log16 P)
+  rounds, the largest count whose size fits), or with
+  ``rate_search="bisect"`` the reference's bisection (``_bisect``); the
+  count found is then materialized.
+
+Which plan a batch takes is ``ulcx_torch.codec.encoder._use_kernel``'s
+choice, ulcx's. ``walks(cfg)`` picks the walks every function here
+runs: the kernels, or with ``use_pallas="off"`` their plain versions on
+any device.
 
 What the TPU layout needed and this port does not: padding batches to
 128 lanes, one-hot matrix products standing in for table gathers (here
@@ -27,8 +37,7 @@ min(gap, 527), it depends on each candidate's next coded position:
 ``cw``, ``cwy`` and ``walks(cfg)`` prices and packs with the plain p3
 walks' gap mode (no kernel has it, as ulcx has no Pallas kernel for
 it), while p1 and p2, whose outputs do not depend on the window, stay
-the kernels. The gap ladder is the classic, exact one, as ulcx's scan
-path searches.
+the kernels. Gap takes the scan path's plan, as in ulcx.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ from ulcx_torch.ops.scanutil import cumsum_f32
 from ulcx_torch.utils.config import CodecConfig
 
 N_CAND = ek.N_CAND
+K_SCAN = 16  # candidates a round of the scan path's ladder: two rounds of the walks' eight
 _I32 = torch.int32
 _DEC_SCALE = float(np.float32(-(2.0**19)))
 
@@ -276,8 +286,13 @@ def walks(cfg: CodecConfig) -> ek.Walks:
     lie, launching no kernel. With ``noise_run_window="gap"`` both p3
     walks are the plain versions' gap mode, which take the planes' gap
     prefix sums as two more arguments."""
-    w = ek.PLAIN_WALKS if cfg.use_pallas == "off" else ek.KERNEL_WALKS
-    if cfg.noise_run_window == "gap":
+    return walks_for(cfg.use_pallas, cfg.noise_run_window)
+
+
+def walks_for(use_pallas: str, noise_run_window: str) -> ek.Walks:
+    """``walks`` from the two settings it reads."""
+    w = ek.PLAIN_WALKS if use_pallas == "off" else ek.KERNEL_WALKS
+    if noise_run_window == "gap":
         w = w._replace(p3_size=ek.p3_size_gap_plain, p3_materialize=ek.p3_materialize_gap_plain)
     return w
 
@@ -332,32 +347,27 @@ def _rounds(p_tot: int) -> int:
 _SEED_W = (-51, -31, -18, -9, -4, 0, 5, 15)
 
 
-# Largest P the seeded plan serves: ulcx's kernel path (whose plan it is)
-# stops here. Above it ulcx searches with its exact classic ladder, and so
-# does the port: the seeded round assumes the first round found a
-# feasible count, and where it found none (a budget below n_nz / 8
-# coefficients' worth: 32 channels x bs2048 at 128 kbps) the final round
-# landed up to 10 % under the budget.
-SEEDED_MAX_P = 32768
-
-
-def _seed_plan(rounds: int, seeded: bool = True):
+def _seed_plan(rounds: int):
     """(classic size rounds, use the seeded round) before the final round:
-    one classic round and the seeded one, or with ``seeded`` false (or
-    too few rounds) the classic ladder's rounds - 1, which leave the
-    final round a bracket of at most 8 counts."""
-    if rounds - 1 < 2 or not seeded:
+    one classic round and the seeded one, or with too few rounds the
+    classic ladder's rounds - 1, which leave the final round a bracket
+    of at most 8 counts."""
+    if rounds - 1 < 2:
         return rounds - 1, False
     return 1, True
 
 
-def _bracket_search(size_fn, n_nz, budget, rounds: int, seeded: bool = True):
+def _bracket_search(size_fn, n_nz, budget, rounds: int):
     """Classic + interp-seeded ladder rounds over candidates [B, 8].
     Returns (lo, hi) [B]: the crossing bracketed, lo the best
-    known-feasible count (or 0). All arithmetic is int32."""
+    known-feasible count (or 0). All arithmetic is int32. The seeded
+    round assumes the first round found a feasible count; where it found
+    none the final round can land well under the budget, which is why
+    ulcx takes this plan only where its kernels run (P <= 32768, the
+    segment window, a batch of a multiple of 8)."""
     k = N_CAND
     dev = n_nz.device
-    classic, seeded = _seed_plan(rounds, seeded)
+    classic, seeded = _seed_plan(rounds)
     budget = budget.to(_I32)
     karr1 = torch.arange(1, k + 1, dtype=_I32, device=dev)[None]
     jidx = torch.arange(k, dtype=_I32, device=dev)[None]
@@ -412,6 +422,32 @@ def _final_cands(lo, hi):
     return torch.minimum(cands, hi_c[:, None])
 
 
+def _cbr_search_ladder(size_fn, n_nz, budget, p_tot: int, k: int = K_SCAN):
+    """ulcx's scan-path rate search (``ulcx.codec.encoder.
+    _cbr_search_ladder``), step for step for a batch: ceil(log_k P)
+    rounds each price k candidate counts per stream (``size_fn``: counts
+    [B, k] -> sizes [B, k]) and narrow the bracket k-fold. Exact: the
+    largest count whose size fits the budget wherever Size(n) is
+    monotone. Returns the count [B]."""
+    rounds = max(1, int(math.ceil(math.log(p_tot, k))))
+    karr1 = torch.arange(1, k + 1, dtype=_I32, device=n_nz.device)[None]
+    bud = budget.to(_I32)[:, None]
+    lo = torch.zeros_like(n_nz, dtype=_I32)
+    hi = n_nz.to(_I32)
+    for _ in range(rounds):
+        step = torch.clamp((hi - lo + k - 1) // k, min=1)
+        cands = lo[:, None] + step[:, None] * karr1
+        cands_c = torch.minimum(cands, torch.clamp(hi, min=0)[:, None])
+        sizes = size_fn(cands_c)
+        feas = (sizes <= bud) & (cands <= hi[:, None])
+        # largest feasible candidate -> new lo; smallest infeasible -> bound
+        best = torch.where(feas, cands_c, lo[:, None]).amax(dim=1)
+        first_bad = torch.where(feas | (cands > hi[:, None]), 2**30, cands).amin(dim=1)
+        lo = torch.where(feas.any(dim=1), best, lo)
+        hi = torch.minimum(hi, first_bad - 1)
+    return lo
+
+
 def _bisect(size_fn, n_nz, budget, p_tot: int):
     """The reference's bisection (ulcEncoder.c:98-115), step for step as
     ``ulcx.codec.encoder._cbr_search``: ceil(log2 P) + 1 rounds, each
@@ -434,39 +470,53 @@ def _bisect(size_fn, n_nz, budget, p_tot: int):
     return lo
 
 
+def _rate_search(pl: Planes, n_header, n_nz, budget, cfg: CodecConfig, w: ek.Walks):
+    """The scan path's count search (ulcx ``encoder._rate_search``):
+    ``rate_search="bisect"`` the bisection, else the exact ladder, each
+    round priced by the walks, sixteen candidates as two rounds of
+    eight. Returns the count [B]."""
+    p_tot = pl.coef.shape[0]
+    budget = budget.to(_I32)
+    if cfg.rate_search == "bisect":
+        return _bisect(lambda n: round_sizes(pl, n_header, _every_slot(n), w)[:, 0],
+                       n_nz, budget, p_tot)
+
+    def size_fn(nn):
+        return torch.cat([round_sizes(pl, n_header, nn[:, j: j + N_CAND], w)
+                          for j in range(0, K_SCAN, N_CAND)], dim=1)
+
+    return _cbr_search_ladder(size_fn, n_nz, budget, p_tot)
+
+
 def total_sizes(fb: FastBlockData, nout: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
     """Byte-aligned block sizes in bits for candidate counts nout [B, 8]."""
     return round_sizes(make_planes(fb), fb.n_header, nout.to(_I32), walks(cfg))
 
 
+def _packed(pl: Planes, n_header, n_out, max_bytes: int, w: ek.Walks):
+    """(size_bits [B], bytes [B, max_bytes]) of one count per stream."""
+    bits, words, _, _ = _materialize(pl, _every_slot(n_out), max_bytes, w)
+    return _sizes_of(bits[:, :1], n_header)[:, 0], _words_to_bytes(words[:, 0])
+
+
 def materialize_fast(fb: FastBlockData, n_out, cfg: CodecConfig, max_bytes: int):
     """Byte streams for chosen counts n_out [B]. Returns (size_bits [B],
     bytes [B, max_bytes])."""
-    bits, words, _, _ = _materialize(make_planes(fb), _every_slot(n_out), max_bytes, walks(cfg))
-    size_bits = _sizes_of(bits[:, :1], fb.n_header)[:, 0]
-    return size_bits, _words_to_bytes(words[:, 0])
+    return _packed(make_planes(fb), fb.n_header, n_out, max_bytes, walks(cfg))
 
 
 def search_materialize_fast(fb: FastBlockData, n_nz, budget, cfg: CodecConfig, max_bytes: int):
-    """CBR/ABR: the seeded ladder (above SEEDED_MAX_P, and with the gap
-    noise window, the classic one),
-    with the final round fused into materialization (every candidate is
-    priced and packed; each stream keeps its best feasible one); or,
-    with ``rate_search="bisect"``, the
-    reference's bisection, then the count it found materialized.
+    """CBR/ABR on the kernel path's plan: the seeded ladder, with the
+    final round fused into materialization (every candidate is priced
+    and packed; each stream keeps its best feasible one). ulcx ignores
+    ``rate_search`` on this plan, and so does the port.
     Returns (n_out [B], size_bits [B], bytes [B, max_bytes])."""
     b, p_tot = fb.coef.shape
     pl = make_planes(fb)
     w = walks(cfg)
     budget = budget.to(_I32)
-    if cfg.rate_search == "bisect":
-        n_out = _bisect(lambda n: round_sizes(pl, fb.n_header, _every_slot(n), w)[:, 0],
-                        n_nz, budget, p_tot)
-        bits, words, _, _ = _materialize(pl, _every_slot(n_out), max_bytes, w)
-        return n_out, _sizes_of(bits[:, :1], fb.n_header)[:, 0], _words_to_bytes(words[:, 0])
     lo, hi = _bracket_search(lambda nn: round_sizes(pl, fb.n_header, nn, w), n_nz.to(_I32),
-                             budget, _rounds(p_tot),
-                             seeded=p_tot <= SEEDED_MAX_P and cfg.noise_run_window == "segment")
+                             budget, _rounds(p_tot))
     cands_c = _final_cands(lo, hi)
     bits, words, _, _ = _materialize(pl, cands_c, max_bytes, w)
     sizes = _sizes_of(bits, fb.n_header)
@@ -480,3 +530,14 @@ def search_materialize_fast(fb: FastBlockData, n_nz, budget, cfg: CodecConfig, m
         sizes[rows, best_j],
         _words_to_bytes(words[rows, best_j]),
     )
+
+
+def search_materialize_scan(fb: FastBlockData, n_nz, budget, cfg: CodecConfig, max_bytes: int):
+    """CBR/ABR on the scan path's plan (ulcx ``encode_analyzed_cbr``):
+    ``_rate_search`` finds each stream's count, which is then
+    materialized once. Returns (n_out [B], size_bits [B],
+    bytes [B, max_bytes])."""
+    pl = make_planes(fb)
+    w = walks(cfg)
+    n_out = _rate_search(pl, fb.n_header, n_nz.to(_I32), budget, cfg, w)
+    return (n_out, *_packed(pl, fb.n_header, n_out, max_bytes, w))

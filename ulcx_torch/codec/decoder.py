@@ -6,9 +6,9 @@ RNG-expand kernels give the coefficients, the batched inverse transform
 laps them with the previous block, and the pairwise M/S is undone. The
 block axis is a Python loop; each stream's byte offset advances by its
 block's whole bytes and stays a tensor on the device. ``decode_stream``
-and ``decode_block`` decode one stream as a batch of one, and
-``decode_stream`` takes and returns ``(offset, carry)`` so that a stream
-continues call after call; ``decoder_carry_from_numpy`` and
+decodes one stream as a batch of one, and takes and returns ``(offset,
+carry)`` so that a stream continues call after call; ``decode_block``
+is ulcx's single-block form (``bitstream.decode``); ``decoder_carry_from_numpy`` and
 ``decoder_carry_to_numpy`` move that carry to and from ``ulcx``'s.
 ``decode_stream_pipelined`` decodes one stream with the same interface
 and results, keeping only the state machine serial: it resolves every
@@ -23,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ulcx_torch.bitstream.decode import decode_block_tokens, expand_records
 from ulcx_torch.bitstream.decode_kernels import SEED
 from ulcx_torch.bitstream.fast_decode import (  # noqa: F401
     _header_and_tokens,
@@ -31,6 +32,7 @@ from ulcx_torch.bitstream.fast_decode import (  # noqa: F401
     draw_counts,
     walks,
 )
+from ulcx_torch.codec.transform import block_imdct
 from ulcx_torch.codec.transform_batched import block_imdct_batched, last_subblock_size
 from ulcx_torch.ops.rngjump import jump
 from ulcx_torch.utils.config import CodecConfig
@@ -223,10 +225,17 @@ def decode_stream_pipelined(stream, n_blocks: int, window_bytes: int, cfg: Codec
 
 def decode_block(window: torch.Tensor, carry: DecoderCarry, cfg: CodecConfig):
     """Decode one block from a byte window [W] uint8 that starts at the
-    block's boundary (W at least the largest block's bytes). ``carry``
-    has no batch axis. Returns (pcm [C, N], new carry, bits consumed,
-    corrupt), computed where ``window`` lies."""
-    coefs, wc, bits, corrupt, seed = decode_block_fast(window[None], carry.rng[None], cfg)
-    pcm, lap, prev_ss = block_imdct_batched(coefs, wc, carry.lap[None], carry.prev_last_ss[None],
-                                            cfg)
-    return inverse_ms(pcm)[0], DecoderCarry(lap[0], prev_ss[0], seed[0]), bits[0], corrupt[0]
+    block's boundary (W at least the largest block's bytes), ulcx's
+    form: ``bitstream.decode.decode_block_tokens`` (the record-mode
+    FSM), ``expand_records`` (placement, RNG-expand), ``transform.
+    block_imdct``, M/S. ``carry`` has no batch axis. Returns (pcm [C, N],
+    new carry, bits consumed, corrupt), computed where ``window`` lies;
+    bits, corrupt flags, coefficients and PCM are those of
+    ``decode_stream`` (whose placing FSM fuses the placement)."""
+    n, c = cfg.block_size, cfg.n_chan
+    wc, hdr, tokens = _header_and_tokens(window[None])
+    records, consumed, corrupt = decode_block_tokens(tokens[:, 0], wc[0], cfg)
+    flat, rng = expand_records(records, carry.rng, n * c, cfg.use_pallas)
+    coefs = torch.where(corrupt, 0.0, flat).reshape(c, n)
+    pcm, lap, last_ss = block_imdct(coefs, wc[0], carry.lap, carry.prev_last_ss, cfg)
+    return inverse_ms(pcm), DecoderCarry(lap, last_ss, rng), 4 * (hdr[0] + consumed), corrupt

@@ -1,18 +1,24 @@
 """Batched encoder: analysis, rate control and serialization per block.
 
-Port of the kernel path of ``ulcx.codec.encoder``. CBR searches the
-coded-coefficient count against the block's bit budget (reference
-ulcEncoder.c:93-116) with the seeded ladder; ABR scales the target rate
-by complexity / average complexity (:128-135); VBR maps quality to a
-coefficient count analytically (:140-158) and materializes it.
+Port of ``ulcx.codec.encoder``. CBR searches the coded-coefficient count
+against the block's bit budget (reference ulcEncoder.c:93-116); ABR
+scales the target rate by complexity / average complexity (:128-135);
+VBR maps quality to a coefficient count analytically (:140-158) and
+materializes it. The search follows ulcx's two paths, both on the same
+walks (``bitstream.fast_encode``): the kernel path's plan, the seeded
+ladder, where ulcx runs its kernels, and the scan path's, the exact
+16-candidate ladder or the bisection, everywhere else. ``_use_kernel``
+is ulcx's route between them.
 
 ``encode_stream_batched`` drives [B, T] blocks in one of two forms: a
 Python loop over blocks carrying ``EncoderCarry``, the bitstream stages
 run once per chunk of ``cfg.fold_bitstream`` blocks at fold * B streams
-(1, the default: block by block; any fold gives the same bytes); or,
-with ``cfg.flat_stream``, everything but window control once over B * T
-streams. ``encode_stream`` and ``encode_block`` code one stream as a
-batch of one.
+(1, the default: block by block); or, with ``cfg.flat_stream``,
+everything but window control once over B * T streams. The route sees
+the batch the bitstream stages run at. ``encode_stream`` codes one
+stream as a batch of one, its block axis the batch; ``encode_block``
+and ``encode_analyzed_cbr`` / ``_abr`` / ``_vbr`` are ulcx's
+single-block forms, always on the scan path's plan.
 """
 
 from __future__ import annotations
@@ -24,11 +30,13 @@ import numpy as np
 import torch
 
 from ulcx_torch.analysis.batched import analyze_block_batched, analyze_stream_batched
-from ulcx_torch.analysis.block import AnalyzedBlock, EncoderCarry
+from ulcx_torch.analysis.block import AnalyzedBlock, EncoderCarry, analyze_block
+from ulcx_torch.analysis.block import map_leaves as _map
 from ulcx_torch.bitstream.fast_encode import (
     materialize_fast,
     prepare_fast,
     search_materialize_fast,
+    search_materialize_scan,
 )
 from ulcx_torch.utils.config import CodecConfig
 from ulcx_torch.utils.device import on_device
@@ -75,8 +83,34 @@ def _vbr_counts(blk: AnalyzedBlock, quality, cfg: CodecConfig) -> torch.Tensor:
     )
 
 
-def _encode_analyzed_fast(blk: AnalyzedBlock, cfg: CodecConfig, mode: str, **kw) -> EncodedBlock:
-    """Bitstream stages of one block step (walks on the kernels)."""
+def _use_kernel(cfg: CodecConfig, batch: int) -> bool:
+    """The plan a bitstream batch of ``batch`` streams takes: True the
+    kernel path's (the seeded ladder), False the scan path's (the exact
+    ladder, or the bisection). ulcx's ``encoder._use_kernel`` without its
+    backend clause: a CPU tensor takes the route a CUDA one takes, so
+    the CPU stands for the card (ulcx sends "auto" on the CPU to its
+    scan path). "auto" takes the kernel path's plan where ulcx's kernels
+    run: P <= 32768 and a multiple of 128, the segment window, a batch
+    of a multiple of 8. "on" takes it at any batch and P up to 32768,
+    where ulcx refuses a shape outside that envelope (the port's walks
+    serve every shape); above P = 32768 and with the gap window there
+    is no kernel plan ("on" with gap is refused by ``CodecConfig``).
+    "off" always takes the scan path's plan. Whether the walks are the
+    kernels or their plain versions is ``fast_encode.walks``'s choice."""
+    if cfg.use_pallas == "off":
+        return False
+    p_tot = cfg.n_chan * cfg.block_size
+    if p_tot > 32768 or cfg.noise_run_window != "segment":
+        return False
+    if cfg.use_pallas == "on":
+        return True
+    return p_tot % 128 == 0 and batch % 8 == 0
+
+
+def _encode_analyzed_fast(blk: AnalyzedBlock, cfg: CodecConfig, mode: str, kernel: bool,
+                          **kw) -> EncodedBlock:
+    """Bitstream stages of a batch of analyzed blocks, on the kernel
+    path's plan (``kernel``, see ``_use_kernel``) or the scan path's."""
     fb = prepare_fast(blk, cfg)
     if mode == "vbr":
         size, data = materialize_fast(fb, _vbr_counts(blk, kw["quality"], cfg), cfg, max_block_bytes(cfg))
@@ -85,10 +119,43 @@ def _encode_analyzed_fast(blk: AnalyzedBlock, cfg: CodecConfig, mode: str, **kw)
         if mode == "abr":
             rate = rate * blk.complexity / torch.tensor(float(kw["avg_complexity"]), dtype=_F32)
         budget = cbr_bit_budget(cfg, rate).expand(blk.n_nz.shape)
-        _, size, data = search_materialize_fast(fb, blk.n_nz, budget, cfg, max_block_bytes(cfg))
+        search = search_materialize_fast if kernel else search_materialize_scan
+        _, size, data = search(fb, blk.n_nz, budget, cfg, max_block_bytes(cfg))
     else:
         raise ValueError(mode)
     return EncodedBlock(data, size, blk.complexity, blk.window_ctrl)
+
+
+def _on_scan_plan(blk: AnalyzedBlock, cfg: CodecConfig, mode: str, **kw) -> EncodedBlock:
+    """The scan path's plan for analyzed blocks with a leading [B], or
+    for ulcx's single-block leaves (a 0-d window_ctrl) as a batch of one."""
+    one = blk.window_ctrl.dim() == 0
+    if one:
+        blk = _map(lambda x: x[None], blk)
+    enc = _encode_analyzed_fast(blk, cfg, mode, False, **kw)
+    return _map(lambda x: x[0], enc) if one else enc
+
+
+def encode_analyzed_cbr(blk: AnalyzedBlock, rate_kbps, cfg: CodecConfig) -> EncodedBlock:
+    return _on_scan_plan(blk, cfg, "cbr", rate_kbps=rate_kbps)
+
+
+def encode_analyzed_abr(blk: AnalyzedBlock, rate_kbps, avg_complexity, cfg: CodecConfig) -> EncodedBlock:
+    return _on_scan_plan(blk, cfg, "abr", rate_kbps=rate_kbps, avg_complexity=avg_complexity)
+
+
+def encode_analyzed_vbr(blk: AnalyzedBlock, quality, cfg: CodecConfig) -> EncodedBlock:
+    return _on_scan_plan(blk, cfg, "vbr", quality=quality)
+
+
+def _encode_analyzed(blk: AnalyzedBlock, cfg: CodecConfig, mode: str, **kw) -> EncodedBlock:
+    if mode == "cbr":
+        return encode_analyzed_cbr(blk, kw["rate_kbps"], cfg)
+    if mode == "abr":
+        return encode_analyzed_abr(blk, kw["rate_kbps"], kw["avg_complexity"], cfg)
+    if mode == "vbr":
+        return encode_analyzed_vbr(blk, kw["quality"], cfg)
+    raise ValueError(mode)
 
 
 def encode_block_batched(carry: EncoderCarry, new_blocks: torch.Tensor, cfg: CodecConfig,
@@ -96,7 +163,7 @@ def encode_block_batched(carry: EncoderCarry, new_blocks: torch.Tensor, cfg: Cod
     """One block step for a batch: carry with leading [B], new_blocks
     [B, C, N]. Returns (new carry, EncodedBlock with leading [B])."""
     carry, blk = analyze_block_batched(carry, new_blocks, cfg)
-    return carry, _encode_analyzed_fast(blk, cfg, mode, **kw)
+    return carry, _encode_analyzed_fast(blk, cfg, mode, _use_kernel(cfg, new_blocks.shape[0]), **kw)
 
 
 def _stack(xs, dim: int):
@@ -105,13 +172,6 @@ def _stack(xs, dim: int):
     if isinstance(xs[0], torch.Tensor):
         return torch.stack(xs, dim=dim)
     return type(xs[0])(*(_stack(list(leaf), dim) for leaf in zip(*xs)))
-
-
-def _map(fn, x):
-    """``fn`` over every tensor leaf of a (possibly nested) NamedTuple."""
-    if isinstance(x, torch.Tensor):
-        return fn(x)
-    return type(x)(*(_map(fn, leaf) for leaf in x))
 
 
 def encode_stream_batched(blocks: torch.Tensor, cfg: CodecConfig, mode: str,
@@ -129,15 +189,17 @@ def encode_stream_batched(blocks: torch.Tensor, cfg: CodecConfig, mode: str,
     few bytes a block (``devtools/torch_flat_nearties.py``).
     Else analysis is a per-block loop and the bitstream stages run once
     per chunk of ``cfg.fold_bitstream`` blocks at fold * B streams: the
-    walks are launched T / fold times and the bytes do not depend on
-    fold. A fold that does not divide T counts as 1, block by block."""
+    walks are launched T / fold times, and the bytes do not depend on
+    fold wherever B and fold * B streams take the same plan
+    (``_use_kernel``; in ulcx alike). A fold that does not divide T
+    counts as 1, block by block."""
     b, t = blocks.shape[0], blocks.shape[1]
     if carry is None:
         carry = init_carry_batched(cfg, b, blocks.device)
 
     if cfg.flat_stream:
         carry, blk = analyze_stream_batched(carry, blocks, cfg)
-        enc = _encode_analyzed_fast(blk, cfg, mode, **kw)
+        enc = _encode_analyzed_fast(blk, cfg, mode, _use_kernel(cfg, b * t), **kw)
         out = _map(lambda x: x.reshape((b, t) + x.shape[1:]), enc)
         if scan_major:
             out = _map(lambda x: x.transpose(0, 1), out)
@@ -154,7 +216,7 @@ def encode_stream_batched(blocks: torch.Tensor, cfg: CodecConfig, mode: str,
             carry, blk = analyze_block_batched(carry, blocks[:, k], cfg)
             blks.append(blk)
         chunk = _map(lambda x: x.flatten(0, 1), _stack(blks, 0))
-        encs.append(_encode_analyzed_fast(chunk, cfg, mode, **kw))
+        encs.append(_encode_analyzed_fast(chunk, cfg, mode, _use_kernel(cfg, fold * b), **kw))
     out = _map(lambda x: x.reshape((t, b) + x.shape[2:]), _stack(encs, 0))
     if not scan_major:
         out = _map(lambda x: x.transpose(0, 1), out)
@@ -171,9 +233,13 @@ def encode_stream(blocks, cfg: CodecConfig, mode: str, carry: EncoderCarry | Non
     One stream is a batch of one, so the block axis takes the batch's
     place: unless the caller set ``flat_stream`` or a ``fold_bitstream``
     of their own (say, to bound the walk planes' memory on a long
-    chunk), the bitstream stages run once over all T blocks. Analysis
-    stays a per-block loop at the same shapes whatever T is, so the
-    bytes do not depend on how the stream is chunked."""
+    chunk), the bitstream stages run once over all T blocks, and T
+    routes them as ulcx's does: a call of a multiple of 8 blocks takes
+    the kernel path's plan, any other call the scan path's. Analysis
+    stays a per-block loop at the same shapes whatever T is, so a
+    block's bytes depend on the chunking only through that plan: they
+    do not change when the stream is cut into calls of multiples of 8
+    blocks (the encode tool pads its last chunk to keep it so)."""
     blocks = on_device(blocks, device)
     if not cfg.flat_stream and cfg.fold_bitstream == 1:
         cfg = dataclasses.replace(cfg, fold_bitstream=blocks.shape[0])
@@ -184,9 +250,10 @@ def encode_stream(blocks, cfg: CodecConfig, mode: str, carry: EncoderCarry | Non
 
 
 def encode_block(carry: EncoderCarry, new_block: torch.Tensor, cfg: CodecConfig, mode: str, **kw):
-    """One block step of one stream: carry without a batch axis,
-    new_block [C, N]. Returns (new carry, EncodedBlock), computed where
-    ``new_block`` lies."""
-    carry = _map(lambda x: x[None], carry)
-    carry, enc = encode_block_batched(carry, new_block[None], cfg, mode, **kw)
-    return _map(lambda x: x[0], carry), _map(lambda x: x[0], enc)
+    """One block step of one stream, ulcx's form: ``analyze_block`` then
+    the scan path's plan. carry without a batch axis, new_block [C, N].
+    Returns (new carry, EncodedBlock), computed where ``new_block``
+    lies. Its bytes are those of ``encode_stream`` wherever a call takes
+    the scan path's plan (a call of a length that is no multiple of 8)."""
+    carry, blk = analyze_block(carry, new_block, cfg)
+    return carry, _encode_analyzed(blk, cfg, mode, **kw)

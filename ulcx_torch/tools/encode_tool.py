@@ -149,7 +149,11 @@ def main(argv=None, device="cuda") -> int:
                     frames = wav.read_frames_int(take * n)
                 else:
                     frames = wav.read_frames(take * n)  # interleaved, 0-padded
-                q.put(np.ascontiguousarray(frames.reshape(take, n, c).transpose(0, 2, 1)))
+                blocks = frames.reshape(take, n, c).transpose(0, 2, 1)
+                if take < chunk:  # every call codes a whole chunk: the same plan for each
+                    pad = np.zeros((chunk - take, c, n), blocks.dtype)
+                    blocks = np.concatenate([blocks, pad], 0)
+                q.put((np.ascontiguousarray(blocks), take))
                 left -= take
             q.put(None)
         except BaseException as e:  # noqa: BLE001
@@ -158,13 +162,12 @@ def main(argv=None, device="cuda") -> int:
     rd = threading.Thread(target=_reader, daemon=True)
     rd.start()
 
-    def _flush(encoded):
+    def _flush(encoded, take):
         nonlocal total_bytes, max_bytes, cx_sum, done_blocks, last_print
-        sizes = encoded.size_bits.cpu().numpy()
+        sizes = encoded.size_bits[:take].cpu().numpy()
         # fetch only the used prefix of the byte planes
-        datas = encoded.data[:, : int(sizes.max()) // 8].cpu().numpy()
-        cx_sum += float(encoded.complexity.cpu().numpy().sum())
-        take = sizes.shape[0]
+        datas = encoded.data[:take, : int(sizes.max()) // 8].cpu().numpy()
+        cx_sum += float(encoded.complexity[:take].cpu().numpy().sum())
         packed = native.pack_blocks(datas, sizes)
         if packed is not None:
             out.write(packed)
@@ -197,15 +200,16 @@ def main(argv=None, device="cuda") -> int:
                 break
             if isinstance(item, BaseException):
                 raise item
-            blocks = on_device(item, device)
+            blocks, take = item
+            blocks = on_device(blocks, device)
             if int_scale is not None:
                 blocks = blocks.to(torch.float32) * int_scale
             encoded, carry = encode_stream(blocks, cfg, mode, carry=carry, device=device, **kw)
             if pending is not None:
-                _flush(pending)
-            pending = encoded
+                _flush(*pending)
+            pending = (encoded, take)
         if pending is not None:
-            _flush(pending)
+            _flush(*pending)
     rd.join()
 
     n_samples_enc = n_blocks * n
