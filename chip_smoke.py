@@ -122,7 +122,11 @@ Phases, each of which raises on failure:
     verify SKILL's five error paths with their messages and exit codes
     (1, 1, 255, 255, 255); each tool again in process, timed (encode
     bytes identical to the subprocess's); ``batch_tool`` over the four
-    files (headers, budgets, clean decodes); ``-profile:DIR`` writes a
+    files, which it pads with zero streams to a batch of 8, the kernel
+    path's plan: launches exactly (3, 3, 2, 1) x the block steps it coded,
+    headers, budgets, clean decodes; its aggregate realtime factor
+    printed beside the figure it had on the scan path's plan, before it
+    padded; ``-profile:DIR`` writes a
     trace; a checkpoint on the card (half the blocks, ``save_carry``,
     ``load_carry``, the rest) gives one call's bytes. Prints whether the
     native I/O library loaded and each tool's realtime factor;
@@ -156,7 +160,15 @@ Phases, each of which raises on failure:
     to ``encode_stream`` of them (T=12, the scan path's plan too), and
     ``decode_block`` of their bytes, identical to ``decode_stream``
     (PCM, bits, corrupt flags, carry) with the record-mode FSM kernel
-    and RNG-expand launched once a block.
+    and RNG-expand launched once a block;
+19. public names: ``rate_search_fast`` on the flagship's first block step
+    (B=512, P=4096): launches exactly (3, 3, 3, 0), the count equal to
+    ``search_materialize_fast``'s and to its own with ``use_pallas="off"``
+    (the plain walks on the card), again at a ragged B=13; both searches
+    timed (median of warm calls); ``mdct_mdst_frame`` and ``mdct_frame``
+    (S=2048 ``matmul``, S=32768 ``fact`` and ``fft``, an overlap pair a
+    row) and ``ema`` on [512, 4096] in both directions against the same
+    calls on the CPU, within 1e-5 and 3e-5 of the largest magnitude.
 
 Each phase prints the seconds it took.
 
@@ -167,10 +179,11 @@ times at the main path's B=512, and its bound: the bytes of its inputs
 and outputs at that shape over the card's 3.35 TB/s (no PyTorch call
 computes any of these serial walks, so ``library_ms`` is null); beside
 them the times at P = 8192 (phase 10) and P = 65,536 (phase 13) and the
-launches on the other paths (the gap window's and the mesh's among
-them); the last is ``{"ok": true, "device": {...}}``. The script exits
-non-zero, printing neither, when there is no CUDA device or any phase
-fails. It imports nothing of JAX.
+launches on the other paths (the gap window's, the mesh's, the batch
+tool's and ``rate_search_fast``'s among them); the last is
+``{"ok": true, "device": {...}}``. The script exits non-zero, printing
+neither, when there is no CUDA device or any phase fails. It imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -212,11 +225,17 @@ SCAN_KERNEL_B = 8  # phase 18: streams also coded on the kernel path's plan
 ONE_BLOCKS = 12  # phase 18: flagship blocks through encode_block and decode_block
 TOOL_SECONDS, TOOL_FILES = 30, 4  # phase 16: seconds of audio a WAV, WAVs for the batch tool
 PROFILE_BLOCKS = 8  # phase 16: the -profile: run's WAV
+# phase 16: the batch tool's figure over the same four files when it did not
+# pad them, on the scan path's plan (PERF.md, "Findings")
+SCAN_PLAN_BATCH_RTF = "10.5x realtime aggregate (11.40 s) [NVIDIA H100 80GB HBM3, 700.00 W]"
 CKPT_T = 32  # phase 16: blocks encoded across a checkpoint
 MESH_MAX_RANKS = 4  # phase 17: ranks of the torchrun mesh, a card each where there are cards
 MESH_RUNS = 3  # phase 17: timed runs of the torchrun mesh
 MESH_TIMEOUT_S = 400  # phase 17: limit of each torchrun
 ENTRY_BS = 1024  # phase 17: entry()'s block size
+NAMES_TIMED = 9  # phase 19: warm calls of each search, their median kept
+FRAME_ROWS = {2048: 16, 32768: 4}  # phase 19: frames of each size, an overlap pair a row
+FRAME_TOL, EMA_TOL = 1e-5, 3e-5  # phase 19: card vs CPU, of the largest magnitude
 PCM_RMS = 1e-5  # card vs CPU: float32 matrix products sum in another order
 MIN_SNR_DB = 12.0  # the corpus round-trips at ~16.5 dB at CBR-128; far below means broken
 SOURCE = "ulcx_torch/csrc/encode_walks.cu"
@@ -243,6 +262,8 @@ RAGGED_B, RAGGED_BS, RAGGED_CHAN = 13, 256, 3
 # walk launches of one CBR block step: p1 and p2 once a size round and
 # once for the final round, p3 size once a size round, p3 materialize once
 PER_BLOCK = {"p1": 3, "p2": 3, "p3_size": 2, "p3_materialize": 1}  # seeded ladder, P <= 32768
+# rate_search_fast: the seeded ladder with a size-only final round, P >= 512
+RATE_SEARCH_FAST = {"p1": 3, "p2": 3, "p3_size": 3, "p3_materialize": 0}
 # the scan path's exact ladder: ceil(log16 P) rounds of sixteen candidates, each
 # two rounds of the walks' eight, then the count materialized; P = 32768 and 65,536
 SCAN_PER_BLOCK = {"p1": 9, "p2": 9, "p3_size": 8, "p3_materialize": 1}
@@ -1431,6 +1452,84 @@ def scan_path(device, card):
             "decode_block": d_counts}
 
 
+def public_names(cfg, x, device, card):
+    """Phase 19: rate_search_fast against the fused search and the plain
+    walks on the card, both searches timed; the per-frame MDCT/MDST and
+    the scanned ema against the CPU. Returns {"rate_search_fast": its
+    launches of p1, p2 and p3 size at B = MAIN_B}."""
+    import dataclasses
+
+    import torch
+
+    from ulcx_torch.bitstream import encode_kernels as ek
+    from ulcx_torch.bitstream import fast_encode as fe
+    from ulcx_torch.codec.encoder import cbr_bit_budget, max_block_bytes
+    from ulcx_torch.ops import mdct, scanutil
+
+    off = dataclasses.replace(cfg, use_pallas="off")
+    counts = {}
+    for b in (MAIN_B, RAGGED_B):
+        blk, _ = analyze(x[:b, :1].copy(), cfg, device)  # the first block step
+        fb = fe.prepare_fast(blk, cfg)
+        budget = cbr_bit_budget(cfg, RATE_KBPS).expand(b).to(device=device, dtype=torch.int32)
+        args = (fb, blk.n_nz, budget, cfg)
+        ek.reset_launch_counts()
+        n = fe.rate_search_fast(*args)
+        torch.cuda.synchronize()
+        counts[b] = ek.launch_counts()
+        if counts[b] != RATE_SEARCH_FAST:
+            raise AssertionError(f"rate_search_fast B={b}: launches {counts[b]}, "
+                                 f"expected {RATE_SEARCH_FAST}")
+        fused = fe.search_materialize_fast(*args, max_block_bytes(cfg))[0]
+        plain = fe.rate_search_fast(fb, blk.n_nz, budget, off)
+        if not (torch.equal(n, fused) and torch.equal(n, plain)):
+            raise AssertionError(f"rate_search_fast B={b}: the count differs from the fused "
+                                 f"search's in {int((n != fused).sum())} streams, from the plain "
+                                 f"walks' in {int((n != plain).sum())}")
+        ms = {}
+        for label, fn, a in (("rate_search_fast", fe.rate_search_fast, args),
+                             ("search_materialize_fast", fe.search_materialize_fast,
+                              (*args, max_block_bytes(cfg)))):
+            ms[label] = sorted(timed(fn, a, 1)[1] for _ in range(NAMES_TIMED))[NAMES_TIMED // 2]
+        print(f"rate_search_fast B={b} P={cfg.n_chan * cfg.block_size}: launches {counts[b]}; the "
+              f"count equals search_materialize_fast's and the plain walks' on the card in every "
+              f"stream (mean {float(n.float().mean()):.1f}); median of {NAMES_TIMED} warm calls "
+              f"{ms['rate_search_fast']:.3f} ms a call, search_materialize_fast "
+              f"{ms['search_materialize_fast']:.3f} ms [{card}]", flush=True)
+
+    gen = torch.Generator(device="cpu").manual_seed(19)
+    for s, backends in ((2048, ("matmul",)), (32768, ("fact", "fft"))):
+        rows = FRAME_ROWS[s]
+        frames = torch.randn(rows, 2 * s, generator=gen)
+        shifts = torch.randint(0, s.bit_length(), (2, rows), generator=gen)
+        o_left, o_right = torch.where(shifts == 0, 0, 1 << shifts)  # 0 or a power of two <= S
+        for backend in backends:
+            want = (*mdct.mdct_mdst_frame(frames, o_left, o_right, backend),
+                    mdct.mdct_frame(frames, o_left, o_right, backend))
+            got = (*mdct.mdct_mdst_frame(frames.to(device), o_left.to(device), o_right.to(device),
+                                         backend),
+                   mdct.mdct_frame(frames.to(device), o_left.to(device), o_right.to(device), backend))
+            rel = max(float((g.cpu() - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+            if not rel <= FRAME_TOL:
+                raise AssertionError(f"mdct_mdst_frame S={s} {backend}: {rel:.3g} of the largest "
+                                     f"magnitude from the CPU's (limit {FRAME_TOL})")
+            print(f"mdct_mdst_frame, mdct_frame S={s} {backend} x {rows} frames: within {rel:.2e} "
+                  f"of the largest magnitude of the CPU's", flush=True)
+    v = torch.rand(MAIN_B, 2 * BS, generator=gen) ** 2
+    init = torch.rand(MAIN_B, generator=gen)
+    rate = float(torch.tensor(-115.0 / 44100.0).exp())
+    for reverse in (False, True):
+        want = scanutil.ema(v, rate, init, reverse=reverse)
+        got = scanutil.ema(v.to(device), rate, init.to(device), reverse=reverse)
+        rel = float((got.cpu() - want).abs().max() / want.abs().max())
+        if not rel <= EMA_TOL:
+            raise AssertionError(f"ema reverse={reverse}: {rel:.3g} of the largest magnitude "
+                                 f"from the CPU's (limit {EMA_TOL})")
+        print(f"ema [{MAIN_B}, {2 * BS}] reverse={reverse}: within {rel:.2e} of the largest "
+              f"magnitude of the CPU's", flush=True)
+    return {"rate_search_fast": {k: c for k, c in counts[MAIN_B].items() if k != "p3_materialize"}}
+
+
 def plain_entry_bytes(fn, args, entries):
     """Peak device bytes above the inputs a (position, stream, candidate)
     of one plain walk run on the whole batch as one chunk (what
@@ -1622,10 +1721,16 @@ def tools(device, card):
 
         # the batch tool over TOOL_FILES files
         out_dir = os.path.join(tmp, "batch")
+        ek.reset_launch_counts()
         t0 = time.perf_counter()
         if batch_main(["b", out_dir, "128", *wavs, f"-blocksize:{n}"], device=device) != 0:
             raise AssertionError("batch_tool: a non-zero exit")
         bsecs = time.perf_counter() - t0
+        batch_counts = ek.launch_counts()
+        want = {k: n_blocks * v for k, v in PER_BLOCK.items()}
+        if batch_counts != want:
+            raise AssertionError(f"batch_tool: launch counts {batch_counts}, expected {want} "
+                                 f"(the kernel path's plan, {TOOL_FILES} files padded to 8)")
         for i in range(TOOL_FILES):
             raw = open(os.path.join(out_dir, f"in{i}.ulc"), "rb").read()
             bh = UlcHeader.unpack(raw)
@@ -1634,9 +1739,12 @@ def tools(device, card):
             _, _, bad, _ = decode_stream(s, bh.n_blocks, bw, cfg)
             if bh.n_blocks != n_blocks or bh.max_block_size * 8 > CBR_BUDGET or bool(bad.any()):
                 raise AssertionError(f"batch_tool: file {i}: header {bh}, corrupt {int(bad.sum())}")
-        print(f"\nbatch_tool {TOOL_FILES} files: headers and budgets kept, every file decodes clean; "
-              f"{TOOL_FILES * audio_s / bsecs:.1f}x realtime aggregate ({bsecs:.2f} s) [{card}]",
-              flush=True)
+        print(f"\nbatch_tool {TOOL_FILES} files padded to 8: headers and budgets kept, every file "
+              f"decodes clean; launches {batch_counts} = {n_blocks} block steps x (3, 3, 2, 1), "
+              f"the kernel path's plan; {TOOL_FILES * audio_s / bsecs:.1f}x realtime aggregate "
+              f"({bsecs:.2f} s) [{card}]", flush=True)
+        print(f"batch_tool {TOOL_FILES} files unpadded, the scan path's plan (recorded): "
+              f"{SCAN_PLAN_BATCH_RTF}", flush=True)
 
         # -profile: on a short WAV
         short = os.path.join(tmp, "short.wav")
@@ -1655,6 +1763,7 @@ def tools(device, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
     checkpoint_resume(cfg, corpus[-1, :CKPT_T], device)
+    return {"batch_tool": batch_counts}
 
 
 def checkpoint_resume(cfg, xs, device):
@@ -1926,7 +2035,7 @@ def main() -> int:
     gap_counts = gap_window(cfg, x, "cuda", card, enc_rtf, int(encoded.size_bits.sum()))
 
     phase("16 tools")
-    tools("cuda", card)
+    tool_counts = tools("cuda", card)
 
     phase("17 mesh")
     one_mesh_counts = mesh_of_one(cfg, x, encoded, decoded, streams, win, sizes, card)
@@ -1935,6 +2044,9 @@ def main() -> int:
 
     phase("18 scan path")
     scan_counts = scan_path("cuda", card)
+
+    phase("19 public names")
+    search_counts = public_names(cfg, x, "cuda", card)
     phase(None)
 
     rows = [(name, SOURCE, counts[name], v) for name, v in kres.items()]
@@ -1966,7 +2078,7 @@ def main() -> int:
         mesh_counts = {"mesh of one": {**one_mesh_counts[0], **one_mesh_counts[1]},
                        f"mesh rank 0 of {n_ranks}": rank_counts}
         for knob, c in {**fold_counts, **one_counts, **rate_counts, "gap": gap_counts,
-                        **mesh_counts, **scan_counts}.items():
+                        **mesh_counts, **scan_counts, **tool_counts, **search_counts}.items():
             if name in c:
                 row[f"launches {knob}"] = c[name]
         kernels.append(row)

@@ -78,6 +78,38 @@ def test_search_materialize_identical(blocks, step, rate_kbps):
     assert (gs.numpy() <= budget).all()
 
 
+_RATE_SEARCH = jax.jit(lambda b, n, bud: jfe.rate_search_fast(
+    jfe.prepare_fast(b, CFG), n, bud, CFG, True))
+
+
+@pytest.mark.parametrize("step", range(T))
+@pytest.mark.parametrize("rate_kbps", [128.0, 48.0])
+def test_rate_search_fast_identical(monkeypatch, blocks, step, rate_kbps):
+    """rate_search_fast of ulcx (interpret mode) and of the port, and the
+    n_out of the port's fused search_materialize_fast, count for count;
+    the port's launches p1, p2 and p3 size three times and p3
+    materialize never."""
+    from test_torch_rate_paths import _counting
+
+    blk, budget = blocks[step], _budget(blocks[step], rate_kbps)
+    jb = jax.tree_util.tree_map(jnp.asarray, blk)
+    want = np.asarray(_RATE_SEARCH(jb, jb.n_nz, jnp.asarray(budget)))
+    fb = tfe.FastBlockData(*(torch.from_numpy(np.array(v)) for v in _PREPARE(jb)))
+    n_nz, bud = torch.from_numpy(np.array(blk.n_nz)), torch.from_numpy(budget)
+    counts = _counting(monkeypatch)
+    got = tfe.rate_search_fast(fb, n_nz, bud, TCFG)
+    assert tuple(counts.values()) == (3, 3, 3, 0)
+    fused, _, _ = tfe.search_materialize_fast(fb, n_nz, bud, TCFG, MAX_BYTES)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(fused.numpy(), want)
+
+
+def test_cand_count():
+    for b, p in ((8, 512), (13, 768), (512, 4096), (8, 32768)):
+        assert tfe.cand_count(b, p) == jfe.cand_count(b, p) == 8
+
+
 @pytest.mark.parametrize("step", range(T))
 def test_port_prepare_within_bounds(blocks, step):
     """The port's whole bitstream stage from ulcx's AnalyzedBlock: every

@@ -3,7 +3,8 @@
 Inputs come from numpy seeds and go through both packages. Bit-level
 ops (fast_log, monotone_i32) and integer tables must be identical; the
 float32 matrix products (DCT-IV/DST-IV, EMA) may differ in summation
-order only, so they are held to 1e-5 of the block's largest magnitude.
+order only, so they are held to 1e-5 of the block's largest magnitude
+(the scanned EMA to ulcx's own 3e-5).
 """
 
 import numpy as np
@@ -117,6 +118,73 @@ def test_ema_matches(n, chunk, reverse):
         got = tscan.ema_matmul_chunked(torch.from_numpy(v), rate, torch.from_numpy(init),
                                        reverse=reverse, chunk=chunk)
     assert _rel_err(got, want) < RTOL
+
+
+@pytest.mark.parametrize("s", [64, 256])
+def test_frame_windows_match(s):
+    """fall_window and frame_window against ulcx's at every overlap pair
+    (the same sin bound as the rise window), overlaps as ints, as scalar
+    tensors and one a row."""
+    ovs = (0, 8, s // 2, s)
+    for o in ovs:
+        want = np.asarray(jmdct.fall_window(s, jnp.int32(o)))
+        got = tmdct.fall_window(s, torch.tensor(o)).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-7)
+    pairs = [(a, b) for a in ovs for b in ovs]
+    rows = tmdct.frame_window(s, torch.tensor([a for a, _ in pairs]),
+                              torch.tensor([b for _, b in pairs])).numpy()
+    for (a, b), row in zip(pairs, rows):
+        want = np.asarray(jmdct.frame_window(s, jnp.int32(a), jnp.int32(b)))
+        np.testing.assert_allclose(tmdct.frame_window(s, a, b).numpy(), want, rtol=0, atol=2e-7)
+        np.testing.assert_allclose(row, want, rtol=0, atol=2e-7)
+
+
+@pytest.mark.parametrize("backend,s", [("matmul", 64), ("matmul", 512), ("fact", 512),
+                                       ("fact", 4096), ("fft", 512), ("fft", 4096)])
+def test_mdct_frame_matches(backend, s):
+    """mdct_mdst_frame and mdct_frame against ulcx's, within 1e-5 of the
+    frame's largest magnitude (test_torch_dct_backends.TOL): one overlap
+    pair for all rows as ints, and one a row as tensors (against ulcx's
+    call on each row)."""
+    rng = np.random.default_rng(s)
+    fr = rng.standard_normal((4, 2 * s)).astype(np.float32)
+    ol, orr = np.array([s, s // 2, 8, 0]), np.array([8, s, s // 2, s])
+    wc, ws = jmdct.mdct_mdst_frame(jnp.asarray(fr), jnp.int32(s // 2), jnp.int32(s), backend)
+    gc, gs = tmdct.mdct_mdst_frame(torch.from_numpy(fr), s // 2, s, backend)
+    assert _rel_err(gc, wc) < RTOL and _rel_err(gs, ws) < RTOL
+    assert _rel_err(tmdct.mdct_frame(torch.from_numpy(fr), s // 2, s, backend), wc) < RTOL
+    gc, gs = tmdct.mdct_mdst_frame(torch.from_numpy(fr), torch.from_numpy(ol),
+                                   torch.from_numpy(orr), backend)
+    gm = tmdct.mdct_frame(torch.from_numpy(fr), torch.from_numpy(ol), torch.from_numpy(orr),
+                          backend)
+    for i in range(fr.shape[0]):
+        wc, ws = jmdct.mdct_mdst_frame(jnp.asarray(fr[i]), jnp.int32(ol[i]), jnp.int32(orr[i]),
+                                       backend)
+        assert _rel_err(gc[i], wc) < RTOL and _rel_err(gs[i], ws) < RTOL
+        assert _rel_err(gm[i], wc) < RTOL
+
+
+# ulcx's own bound for its associative-scan ema (tests/test_ops.py)
+EMA_TOL = 3e-5
+
+
+@pytest.mark.parametrize("n", [256, 4096])
+@pytest.mark.parametrize("axis", [-1, 0])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_ema_scan_matches(n, axis, reverse):
+    """ema against ulcx's at three rates, with a scalar and a tensor
+    init, within 3e-5 of the largest magnitude."""
+    rng = np.random.default_rng(n + 7 * reverse)
+    v = (rng.standard_normal((3, n)) ** 2).astype(np.float32)
+    if axis == 0:
+        v = np.ascontiguousarray(v.T)
+    for rate in (float(np.exp(-115.0 / 44100.0)), 0.999, 0.5):
+        for init in (np.float32(0.7), rng.uniform(0.0, 2.0, 3).astype(np.float32)):
+            want = jscan.ema(jnp.asarray(v), rate, jnp.asarray(init), axis=axis, reverse=reverse)
+            got = tscan.ema(torch.from_numpy(v), rate, torch.from_numpy(np.asarray(init)),
+                            axis=axis, reverse=reverse)
+            assert got.shape == v.shape
+            assert _rel_err(got, want) < EMA_TOL, (rate, np.ndim(init))
 
 
 @pytest.mark.parametrize("n", [256, 2048])

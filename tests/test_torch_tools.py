@@ -219,6 +219,48 @@ def test_cbr_budget_and_batch_tool(tmp_path):
         assert open(got, "rb").read() == open(want, "rb").read()
 
 
+def test_batch_tool_pads_to_eight(tmp_path, monkeypatch, capsys):
+    """Three files: the tool pads the batch with zero streams to eight, as
+    ulcx's does, so each block step takes the kernel path's plan, the
+    walks launched (3, 3, 2, 1) times (not the scan path's (7, 7, 6, 1));
+    its files are the first three rows of encode_stream_batched over the
+    zero-padded eight-row batch, framed as the tool frames them; its
+    messages count the three real files."""
+    from test_torch_rate_paths import _counting
+    from ulcx_torch.codec.encoder import encode_stream_batched
+    from ulcx_torch.utils.config import CodecConfig as TCodecConfig
+
+    paths = []
+    for k, freq in enumerate((440.0, 660.0, 880.0)):
+        paths.append(str(tmp_path / f"in{k}.wav"))
+        _write(paths[-1], _tone(5 + k, freq))
+    counts = _counting(monkeypatch)
+    out_dir = str(tmp_path / "batch")
+    assert batch_main(["b", out_dir, "128", *paths, f"-blocksize:{N}", "-chunk:4"],
+                      device="cpu") == 0
+    out = capsys.readouterr().out
+    assert "Encoded 3 files." in out
+    n_blocks = [5 + k + 2 for k in range(3)]
+    t_total = max(n_blocks)
+    assert tuple(counts.values()) == tuple(t_total * w for w in (3, 3, 2, 1))
+
+    x = np.zeros((8, t_total, 2, N), np.float32)
+    for i, p in enumerate(paths):
+        r = WavReader(p)
+        x[i] = r.read_frames(t_total * N).reshape(t_total, N, 2).transpose(0, 2, 1)
+        r.close()
+    cfg = TCodecConfig(rate_hz=44100, n_chan=2, block_size=N)
+    enc, _ = encode_stream_batched(torch.from_numpy(x), cfg, "cbr", rate_kbps=128.0)
+    sizes, data = enc.size_bits.numpy(), enc.data.numpy()
+    for i, (p, nb) in enumerate(zip(paths, n_blocks)):
+        body = b"".join(data[i, j, : sizes[i, j] // 8].tobytes() for j in range(nb))
+        hdr = UlcHeader(block_size=N, max_block_size=int(sizes[i, :nb].max()) // 8, n_blocks=nb,
+                        rate_hz=44100, n_chan=2,
+                        rate_kbps=int(round(len(body) * 8.0 * 44100 / 1000.0 / (nb * N))) & 0xFFFF)
+        got = open(os.path.join(out_dir, f"in{i}.ulc"), "rb").read()
+        assert got == hdr.pack() + body, i
+
+
 def test_error_paths(tmp_path, capsys):
     """The verify SKILL's five: rate 0, a block size not a power of two,
     an unknown output format, a file that is no container, a truncated

@@ -30,6 +30,28 @@ from typing import NamedTuple
 import torch
 
 from ulcx_torch.bitstream import decode_kernels as dk
+from ulcx_torch.bitstream.decode_kernels import (  # noqa: F401 (ulcx's names here)
+    M_DONE,
+    M_LRUN_X,
+    M_LRUN_Y,
+    M_NOISE_X,
+    M_NOISE_Y,
+    M_NOISE_Z,
+    M_NORMAL,
+    M_QUANT_EXT_M,
+    M_QUANT_EXT_S,
+    M_QUANT_MID,
+    M_QUANT_START,
+    M_TAIL_X,
+    M_TAIL_Y,
+    M_TAIL_Z,
+    M_ZSHORT,
+    REC_COEF,
+    REC_NOISE,
+    REC_NONE,
+    REC_TAIL,
+    REC_ZERO,
+)
 from ulcx_torch.bitstream.fast_decode import walks_for
 from ulcx_torch.bitstream.tables import segment_tables
 from ulcx_torch.utils.config import CodecConfig

@@ -10,7 +10,9 @@ the coefficient count of a CBR or ABR block, both on the same walks:
 
 - the kernel path's (``search_materialize_fast``): the seeded ladder
   (``_bracket_search``) narrows the count with size-only rounds, and the
-  final round prices and packs eight candidates at once;
+  final round prices and packs eight candidates at once
+  (``rate_search_fast`` is the same search with a size-only final round,
+  which returns the count alone);
 - the scan path's (``search_materialize_scan``): ulcx's exact ladder
   (``_cbr_search_ladder``, sixteen candidates a round for ceil(log16 P)
   rounds, the largest count whose size fits), or with
@@ -505,25 +507,60 @@ def materialize_fast(fb: FastBlockData, n_out, cfg: CodecConfig, max_bytes: int)
     return _packed(make_planes(fb), fb.n_header, n_out, max_bytes, walks(cfg))
 
 
+def cand_count(b: int, p_tot: int) -> int:
+    """Candidates a round of the kernel path's ladder: the walks' eight,
+    at every batch and P (ulcx's signature)."""
+    return N_CAND
+
+
+def _seeded_final_cands(pl: Planes, n_header, n_nz, budget, w: ek.Walks):
+    """The kernel path's seeded ladder up to its final round: the
+    final round's candidates [B, 8] (ascending, the first the best count
+    the bracketing rounds found feasible)."""
+    lo, hi = _bracket_search(lambda nn: round_sizes(pl, n_header, nn, w), n_nz.to(_I32),
+                             budget, _rounds(pl.coef.shape[0]))
+    return _final_cands(lo, hi)
+
+
+def _best_slot(sizes, budget) -> torch.Tensor:
+    """The final round's choice [B]: the last slot whose size fits the
+    budget, or slot 0 (the bracket's feasible end, always a fallback).
+    No ``cands <= hi`` gate: a clipped candidate equals the bracket's
+    end and stays selectable."""
+    feas = sizes <= budget[:, None]
+    feas[:, 0] = True
+    jidx = torch.arange(N_CAND, device=sizes.device)[None]
+    return torch.where(feas, jidx, 0).amax(dim=1)
+
+
+def rate_search_fast(fb: FastBlockData, n_nz, budget, cfg: CodecConfig) -> torch.Tensor:
+    """The kernel path's seeded ladder without materialization: the
+    final round priced by a size walk. Candidate for candidate the
+    search of ``search_materialize_fast``, so both return the same
+    count [B]. Launches p1, p2 and p3 size three times each at P >= 512,
+    and p3 materialize never."""
+    pl = make_planes(fb)
+    w = walks(cfg)
+    budget = budget.to(_I32)
+    cands_c = _seeded_final_cands(pl, fb.n_header, n_nz, budget, w)
+    best_j = _best_slot(round_sizes(pl, fb.n_header, cands_c, w), budget)
+    return cands_c.gather(1, best_j[:, None])[:, 0]
+
+
 def search_materialize_fast(fb: FastBlockData, n_nz, budget, cfg: CodecConfig, max_bytes: int):
     """CBR/ABR on the kernel path's plan: the seeded ladder, with the
     final round fused into materialization (every candidate is priced
     and packed; each stream keeps its best feasible one). ulcx ignores
     ``rate_search`` on this plan, and so does the port.
     Returns (n_out [B], size_bits [B], bytes [B, max_bytes])."""
-    b, p_tot = fb.coef.shape
+    b = fb.coef.shape[0]
     pl = make_planes(fb)
     w = walks(cfg)
     budget = budget.to(_I32)
-    lo, hi = _bracket_search(lambda nn: round_sizes(pl, fb.n_header, nn, w), n_nz.to(_I32),
-                             budget, _rounds(p_tot))
-    cands_c = _final_cands(lo, hi)
+    cands_c = _seeded_final_cands(pl, fb.n_header, n_nz, budget, w)
     bits, words, _, _ = _materialize(pl, cands_c, max_bytes, w)
     sizes = _sizes_of(bits, fb.n_header)
-    feas = sizes <= budget[:, None]
-    feas[:, 0] = True  # candidate 0 = lo, always a fallback
-    jidx = torch.arange(N_CAND, device=sizes.device)[None]
-    best_j = torch.where(feas, jidx, 0).amax(dim=1)  # [B]
+    best_j = _best_slot(sizes, budget)
     rows = torch.arange(b, device=sizes.device)
     return (
         cands_c[rows, best_j],

@@ -94,3 +94,30 @@ def ema_matmul_chunked(v: torch.Tensor, rate: float, init, reverse: bool = False
     if reverse:
         out = out.flip(-1)
     return out
+
+
+def ema(v: torch.Tensor, rate, init, axis: int = -1, reverse: bool = False) -> torch.Tensor:
+    """Run x[n] = rate*x[n-1] + (1-rate)*v[n] along ``axis``.
+
+    Returns the post-update envelope at every position (v's shape).
+    ``rate`` is a float or a tensor that broadcasts against v; ``init``
+    is x[-1] and broadcasts against v with ``axis`` removed. The pairs
+    (a, b) = (rate, (1-rate)*v), combined as (a1*a2, b1*a2 + b2), are
+    scanned by doubling: ceil(log2 n) shifted combines, on any device."""
+    axis = axis % v.ndim
+    r = torch.as_tensor(rate, dtype=v.dtype, device=v.device)
+    a = torch.broadcast_to(r, v.shape).movedim(axis, -1)
+    b = ((1 - r) * v).movedim(axis, -1)
+    if reverse:
+        a, b = a.flip(-1), b.flip(-1)
+    n, d = a.shape[-1], 1
+    while d < n:
+        b = torch.cat([b[..., :d], b[..., :-d] * a[..., d:] + b[..., d:]], dim=-1)
+        a = torch.cat([a[..., :d], a[..., :-d] * a[..., d:]], dim=-1)
+        d *= 2
+    if reverse:
+        a, b = a.flip(-1), b.flip(-1)
+    init = torch.as_tensor(init, dtype=v.dtype, device=v.device)
+    if init.ndim:
+        init = init.unsqueeze(-1)
+    return (b + a * init).movedim(-1, axis)

@@ -11,8 +11,10 @@ Usage:
 
 rate_spec follows ulcencodetool (RateKbps[,AvgComplexity] | -Quality).
 All inputs must share sample rate and channel count; streams of fewer
-blocks are zero-padded to the longest. ``main(argv, device="cpu")``
-encodes on the CPU (the tests).
+blocks are zero-padded to the longest, and the batch is padded with zero
+streams to a multiple of 8, as ulcx's tool pads it, so that it takes the
+kernel path's plan (``codec.encoder._use_kernel``). ``main(argv,
+device="cpu")`` encodes on the CPU (the tests).
 """
 
 from __future__ import annotations
@@ -69,7 +71,8 @@ def main(argv=None, device="cuda") -> int:
     cfg = CodecConfig(rate_hz=rate_hz, n_chan=n_chan, block_size=block_size)
     n_blocks = [(r.info.n_samples + block_size - 1) // block_size + 2 for r in readers]
     t_total = max(n_blocks)
-    b = len(paths)  # the walks take any batch: nothing pads it
+    b_real = len(paths)
+    b = ((b_real + 7) // 8) * 8  # kernel path wants a multiple of 8
     mode, kw = rate_mode(rate_kbps, avg_cx)
 
     os.makedirs(out_dir, exist_ok=True)
@@ -98,6 +101,9 @@ def main(argv=None, device="cuda") -> int:
         try:
             done_r = 0
             while done_r < t_total:
+                # the last chunk keeps its ``take`` blocks: the plan is
+                # routed by the batch, not by the blocks of a call (the
+                # bitstream stages run block by block)
                 take = min(chunk, t_total - done_r)
                 batch = np.zeros((b, take, n_chan, block_size), np.float32)
                 for i, r in enumerate(readers):
@@ -118,8 +124,8 @@ def main(argv=None, device="cuda") -> int:
 
     def _flush(enc, take, base):
         nonlocal done
-        sizes = enc.size_bits.cpu().numpy()
-        datas = enc.data[:, :, : int(sizes.max()) // 8].cpu().numpy()
+        sizes = enc.size_bits[:b_real].cpu().numpy()
+        datas = enc.data[:b_real, :, : int(sizes.max()) // 8].cpu().numpy()
         for i, (f, hdr, _, _) in enumerate(outs):
             vc = max(0, min(take, n_blocks[i] - base))
             if vc == 0:
@@ -135,7 +141,7 @@ def main(argv=None, device="cuda") -> int:
                     outs[i][2] += nb_
             outs[i][3] = max(outs[i][3], int(sizes[i, :vc].max()) // 8)
         done = base + take
-        rt = done * block_size * b / rate_hz / max(time.time() - t0, 1e-9)
+        rt = done * block_size * b_real / rate_hz / max(time.time() - t0, 1e-9)
         print(
             f"\r{done}/{t_total} block rows ({rt:.0f}x realtime aggregate)",
             end="",
@@ -169,7 +175,7 @@ def main(argv=None, device="cuda") -> int:
         f.close()
     for r in readers:
         r.close()
-    print(f"\nEncoded {b} files.")
+    print(f"\nEncoded {b_real} files.")
     return 0
 
 
