@@ -25,6 +25,8 @@ import time
 from functools import lru_cache
 from pathlib import Path
 
+from ulcx_torch.utils.profiling import span
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "encode_walks.cu", _CSRC / "decode_walks.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "ulcx_torch"
@@ -87,13 +89,14 @@ def build() -> tuple[Path, float]:
 @lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    for name, (n_ptr, n_int) in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+    with span("ulcx.build.library"):
+        path, _ = build()
+        lib = ctypes.CDLL(str(path))
+        for name, (n_ptr, n_int) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        return lib
 
 
 def on_cpu(*tensors) -> bool:

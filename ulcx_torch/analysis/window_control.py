@@ -24,6 +24,7 @@ import torch
 
 from ulcx_torch.ops.scanutil import cumsum_f32, ema_matmul, ema_matmul_chunked
 from ulcx_torch.utils.config import CodecConfig
+from ulcx_torch.utils.profiling import span
 
 _RATE_HP_FWD = float.fromhex("0x1.CC845Cp6")   # -1.0 dB/ms
 _RATE_BP_FWD = float.fromhex("0x1.596344p8")   # -3.0 dB/ms
@@ -120,43 +121,44 @@ def get_window_ctrl(samples: torch.Tensor, st: TransientState, cfg: CodecConfig)
     """Window control for each stream's *next* block (reference
     ULCi_GetWindowCtrl). samples [B, C, 2N] M/S'd. Returns (window_ctrl
     [B] int32, new TransientState)."""
-    st = _transient_filtering(samples, st, cfg)
+    with span("ulcx.encode.analysis.window_control"):
+        st = _transient_filtering(samples, st, cfg)
 
-    n = cfg.block_size
-    b = samples.shape[0]
-    dev = samples.device
-    max_decim = cfg.max_decimation
-    log2_sub = int(math.log2(n // max_decim))
-    n_segments = max_decim
-    seg_size = 8 // max_decim
-    if log2_sub < 6:
-        shift = 6 - log2_sub
-        n_segments >>= shift
-        seg_size <<= shift
-        log2_sub = 6
+        n = cfg.block_size
+        b = samples.shape[0]
+        dev = samples.device
+        max_decim = cfg.max_decimation
+        log2_sub = int(math.log2(n // max_decim))
+        n_segments = max_decim
+        seg_size = 8 // max_decim
+        if log2_sub < 6:
+            shift = 6 - log2_sub
+            n_segments >>= shift
+            seg_size <<= shift
+            log2_sub = 6
 
-    decim = torch.ones(b, dtype=torch.int32, device=dev)
-    trans_ratio = torch.zeros(b, dtype=torch.float32, device=dev)
-    final_log2 = torch.full((b,), log2_sub, dtype=torch.int32, device=dev)
-    running = torch.ones(b, dtype=torch.bool, device=dev)
-    k = 0
-    while (n_segments >> k) >= 1:
-        ns, sz = n_segments >> k, seg_size << k
-        max_ratio, max_seg = _segment_ratios(st, ns, sz)
-        accept = running & (max_ratio - trans_ratio >= _LOG2)
-        final_log2 = torch.where(running, torch.full_like(final_log2, log2_sub + 1 + k), final_log2)
-        decim = torch.where(accept, ns + max_seg, decim)
-        trans_ratio = torch.where(accept, max_ratio, trans_ratio)
-        running = accept & (ns > 1) & (trans_ratio < _LOG2)
-        k += 1
+        decim = torch.ones(b, dtype=torch.int32, device=dev)
+        trans_ratio = torch.zeros(b, dtype=torch.float32, device=dev)
+        final_log2 = torch.full((b,), log2_sub, dtype=torch.int32, device=dev)
+        running = torch.ones(b, dtype=torch.bool, device=dev)
+        k = 0
+        while (n_segments >> k) >= 1:
+            ns, sz = n_segments >> k, seg_size << k
+            max_ratio, max_seg = _segment_ratios(st, ns, sz)
+            accept = running & (max_ratio - trans_ratio >= _LOG2)
+            final_log2 = torch.where(running, torch.full_like(final_log2, log2_sub + 1 + k), final_log2)
+            decim = torch.where(accept, ns + max_seg, decim)
+            trans_ratio = torch.where(accept, max_ratio, trans_ratio)
+            running = accept & (ns > 1) & (trans_ratio < _LOG2)
+            k += 1
 
-    ratio_l2 = trans_ratio * _INV_LOG2
-    scale = torch.where(
-        ratio_l2 < 0.5,
-        torch.zeros_like(decim),
-        torch.where(ratio_l2 >= 6.5, torch.full_like(decim, 7), torch.round(ratio_l2).to(torch.int32)),
-    )
-    scale = torch.where(final_log2 - scale < 6, final_log2 - 6, scale)
-    wc = scale + 0x8 * (decim != 1).to(torch.int32) + 0x10 * decim
-    wc = torch.where(trans_ratio < _LOG2 / 2, torch.full_like(wc, 0x10), wc)
-    return wc.to(torch.int32), st
+        ratio_l2 = trans_ratio * _INV_LOG2
+        scale = torch.where(
+            ratio_l2 < 0.5,
+            torch.zeros_like(decim),
+            torch.where(ratio_l2 >= 6.5, torch.full_like(decim, 7), torch.round(ratio_l2).to(torch.int32)),
+        )
+        scale = torch.where(final_log2 - scale < 6, final_log2 - 6, scale)
+        wc = scale + 0x8 * (decim != 1).to(torch.int32) + 0x10 * decim
+        wc = torch.where(trans_ratio < _LOG2 / 2, torch.full_like(wc, 0x10), wc)
+        return wc.to(torch.int32), st

@@ -32,6 +32,7 @@ import torch
 
 from ulcx_torch.bitstream import decode_kernels as dk
 from ulcx_torch.utils.config import CodecConfig
+from ulcx_torch.utils.profiling import span
 
 _I32 = torch.int32
 
@@ -110,11 +111,21 @@ def decode_block_fast(windows: torch.Tensor, rng_state: torch.Tensor, cfg: Codec
     bits). Returns (coefs [B, C, N], window_ctrl [B], bits [B],
     corrupt [B] bool, new rng state [B]); a corrupt block's
     coefficients are 0."""
+    with span("ulcx.decode.tokens"):
+        tokens = _header_and_tokens(windows)
+    return _decode_tokens(*tokens, rng_state, cfg)
+
+
+def _decode_tokens(wc, hdr, tokens, rng_state, cfg: CodecConfig):
+    """``decode_block_fast`` from ``_header_and_tokens``'s output on:
+    the placing FSM, then RNG-expand."""
     n, c = cfg.block_size, cfg.n_chan
     w = walks(cfg)
-    wc, hdr, tokens = _header_and_tokens(windows)
-    flags, consumed, corrupt = w.fsm_place(wc, tokens, n * c, n)
-    coef, new_seed = w.rng_expand(flags, rng_state)
-    bad = corrupt == 1
-    coefs = torch.where(bad[None], 0.0, coef).T.contiguous().reshape(-1, c, n)
-    return coefs, wc, 4 * (hdr + consumed), bad, new_seed
+    with span("ulcx.decode.fsm_place"):
+        flags, consumed, corrupt = w.fsm_place(wc, tokens, n * c, n)
+        bits = 4 * (hdr + consumed)
+    with span("ulcx.decode.expand"):
+        coef, new_seed = w.rng_expand(flags, rng_state)
+        bad = corrupt == 1
+        coefs = torch.where(bad[None], 0.0, coef).T.contiguous().reshape(-1, c, n)
+    return coefs, wc, bits, bad, new_seed

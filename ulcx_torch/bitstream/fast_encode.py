@@ -57,6 +57,7 @@ from ulcx_torch.bitstream.tables import segment_tables
 from ulcx_torch.ops.keys import monotone_i32
 from ulcx_torch.ops.scanutil import cumsum_f32
 from ulcx_torch.utils.config import CodecConfig
+from ulcx_torch.utils.profiling import span
 
 N_CAND = ek.N_CAND
 K_SCAN = 16  # candidates a round of the scan path's ladder: two rounds of the walks' eight
@@ -89,19 +90,20 @@ def _prep_tables(block_size: int, n_chan: int, device: torch.device):
     """Per-pattern tables on ``device``: segdelta [16, P], is_start
     [16, P], end_line [16, L] (segment end in lines), end_slot [16, L]
     (which N/16-line grid slot that end is)."""
-    n = block_size
-    p_tot = n * n_chan
-    grid_step = (n // 8) // 2
-    starts, ends, _ = segment_tables(n, n_chan)
-    idxp = np.arange(p_tot)
-    segdelta = np.clip(ends - idxp, 0, 0xFFFF).astype(np.int32)
-    is_start = (idxp == starts).astype(np.int32)
-    end_line = (ends[:, 0::2] // 2).astype(np.int32)
-    end_slot = (end_line // grid_step - 1).astype(np.int64)
-    return tuple(
-        torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        for a in (segdelta, is_start, end_line, end_slot)
-    )
+    with span("ulcx.build.prep_tables"):
+        n = block_size
+        p_tot = n * n_chan
+        grid_step = (n // 8) // 2
+        starts, ends, _ = segment_tables(n, n_chan)
+        idxp = np.arange(p_tot)
+        segdelta = np.clip(ends - idxp, 0, 0xFFFF).astype(np.int32)
+        is_start = (idxp == starts).astype(np.int32)
+        end_line = (ends[:, 0::2] // 2).astype(np.int32)
+        end_slot = (end_line // grid_step - 1).astype(np.int64)
+        return tuple(
+            torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (segdelta, is_start, end_line, end_slot)
+        )
 
 
 def prepare_fast(blk: AnalyzedBlock, cfg: CodecConfig) -> FastBlockData:
@@ -113,81 +115,82 @@ def prepare_fast(blk: AnalyzedBlock, cfg: CodecConfig) -> FastBlockData:
     Both come from five prefix sums over the pair (line) domain; with
     ``noise_run_window="gap"`` the first two of them go along whole, for
     the walks to average over each candidate's gap."""
-    n, c = cfg.block_size, cfg.n_chan
-    p_tot = n * c
-    nl = p_tot // 2
-    n_grid = 8 * c
-    grid_step = (n // 8) // 2
-    b = blk.mdct.shape[0]
-    dev = blk.mdct.device
-    segdelta_t, isstart_t, endline_t, endslot_t = _prep_tables(n, c, dev)
-    pat = (blk.window_ctrl >> 4).long()
+    with span("ulcx.encode.bitstream.prepare"):
+        n, c = cfg.block_size, cfg.n_chan
+        p_tot = n * c
+        nl = p_tot // 2
+        n_grid = 8 * c
+        grid_step = (n // 8) // 2
+        b = blk.mdct.shape[0]
+        dev = blk.mdct.device
+        segdelta_t, isstart_t, endline_t, endslot_t = _prep_tables(n, c, dev)
+        pat = (blk.window_ctrl >> 4).long()
 
-    coef = blk.mdct.reshape(b, p_tot).contiguous()
-    noise = blk.noise.reshape(b, p_tot)
-    w = noise[:, 0::2]
-    wy = noise[:, 1::2]
-    g = torch.arange(nl, dtype=torch.float32, device=dev)
+        coef = blk.mdct.reshape(b, p_tot).contiguous()
+        noise = blk.noise.reshape(b, p_tot)
+        w = noise[:, 0::2]
+        wy = noise[:, 1::2]
+        g = torch.arange(nl, dtype=torch.float32, device=dev)
 
-    # five prefix sums {w, w*y, w*g, w*g^2, w*y*g}, exclusive form
-    incl = cumsum_f32(torch.stack([w, wy, w * g, w * g * g, wy * g], dim=1), dim=-1)
-    cs = torch.cat([torch.zeros_like(incl[:, :, :1]), incl[:, :, :-1]], dim=-1)  # [B, 5, L]
-    tot = incl[:, :, -1:]
+        # five prefix sums {w, w*y, w*g, w*g^2, w*y*g}, exclusive form
+        incl = cumsum_f32(torch.stack([w, wy, w * g, w * g * g, wy * g], dim=1), dim=-1)
+        cs = torch.cat([torch.zeros_like(incl[:, :, :1]), incl[:, :, :-1]], dim=-1)  # [B, 5, L]
+        tot = incl[:, :, -1:]
 
-    # value of each prefix sum at every line's segment end: the grid
-    # slot values (the last slot is the grand total), gathered per line
-    gv = torch.cat([cs[:, :, grid_step::grid_step][:, :, : n_grid - 1], tot], dim=-1)
-    slot = endslot_t[pat][:, None, :].expand(b, 5, nl)
-    seg_vals = torch.gather(gv, 2, slot)  # [B, 5, L]
-    end_line = endline_t[pat].to(torch.float32)  # [B, L]
+        # value of each prefix sum at every line's segment end: the grid
+        # slot values (the last slot is the grand total), gathered per line
+        gv = torch.cat([cs[:, :, grid_step::grid_step][:, :, : n_grid - 1], tot], dim=-1)
+        slot = endslot_t[pat][:, None, :].expand(b, 5, nl)
+        seg_vals = torch.gather(gv, 2, slot)  # [B, 5, L]
+        end_line = endline_t[pat].to(torch.float32)  # [B, L]
 
-    cw_a, cwy_a = cs[:, 0], cs[:, 1]
-    cw_end, cwy_end = seg_vals[:, 0], seg_vals[:, 1]
+        cw_a, cwy_a = cs[:, 0], cs[:, 1]
+        cw_end, cwy_end = seg_vals[:, 0], seg_vals[:, 1]
 
-    # noise amplitude window = min(line + 264, segment end)
-    in_window = (g + 264.0) < end_line
-    take = max(0, nl - 264)
+        # noise amplitude window = min(line + 264, segment end)
+        in_window = (g + 264.0) < end_line
+        take = max(0, nl - 264)
 
-    def shifted(j):
-        return torch.cat([cs[:, j, 264:], tot[:, j].expand(b, nl - take)], dim=-1)
+        def shifted(j):
+            return torch.cat([cs[:, j, 264:], tot[:, j].expand(b, nl - take)], dim=-1)
 
-    s_w = torch.where(in_window, shifted(0), cw_end) - cw_a
-    s_wy = torch.where(in_window, shifted(1), cwy_end) - cwy_a
-    amp = torch.exp(s_wy / torch.where(s_w > 0, s_w, torch.ones_like(s_w)))
-    amp_noise = torch.where(s_wy != 0.0, amp, torch.zeros_like(amp))
+        s_w = torch.where(in_window, shifted(0), cw_end) - cw_a
+        s_wy = torch.where(in_window, shifted(1), cwy_end) - cwy_a
+        amp = torch.exp(s_wy / torch.where(s_w > 0, s_w, torch.ones_like(s_w)))
+        amp_noise = torch.where(s_wy != 0.0, amp, torch.zeros_like(amp))
 
-    # HF-extension least squares over the segment tail
-    af = g
-    sw = cw_end - cw_a
-    swy = cwy_end - cwy_a
-    swg = seg_vals[:, 2] - cs[:, 2]
-    swg2 = seg_vals[:, 3] - cs[:, 3]
-    swyg = seg_vals[:, 4] - cs[:, 4]
-    sx = 2.0 * (swg - af * sw)
-    sx2 = 4.0 * (swg2 - 2.0 * af * swg + af * af * sw)
-    sxy = 2.0 * (swyg - af * swy)
-    det = sw * sx2 - sx * sx
-    solvable = det != 0.0
-    det_s = torch.where(solvable, det, torch.ones_like(det))
-    amp_log = (sx2 * swy - sx * sxy) / det_s
-    dec_log = (sw * sxy - sx * swy) / det_s
-    amp_lin = torch.exp(amp_log)
-    dec_lin = torch.where(dec_log < 0, torch.exp(dec_log), torch.ones_like(dec_log))
-    dec_raw = ek.cq_unsigned((dec_lin - 1.0) * _DEC_SCALE)
-    hf_ok = solvable & (dec_raw > 0)
-    hf_meta = torch.clamp(dec_raw, max=255) | (hf_ok.to(_I32) << 8)
+        # HF-extension least squares over the segment tail
+        af = g
+        sw = cw_end - cw_a
+        swy = cwy_end - cwy_a
+        swg = seg_vals[:, 2] - cs[:, 2]
+        swg2 = seg_vals[:, 3] - cs[:, 3]
+        swyg = seg_vals[:, 4] - cs[:, 4]
+        sx = 2.0 * (swg - af * sw)
+        sx2 = 4.0 * (swg2 - 2.0 * af * swg + af * af * sw)
+        sxy = 2.0 * (swyg - af * swy)
+        det = sw * sx2 - sx * sx
+        solvable = det != 0.0
+        det_s = torch.where(solvable, det, torch.ones_like(det))
+        amp_log = (sx2 * swy - sx * sxy) / det_s
+        dec_log = (sw * sxy - sx * swy) / det_s
+        amp_lin = torch.exp(amp_log)
+        dec_lin = torch.where(dec_log < 0, torch.exp(dec_log), torch.ones_like(dec_log))
+        dec_raw = ek.cq_unsigned((dec_lin - 1.0) * _DEC_SCALE)
+        hf_ok = solvable & (dec_raw > 0)
+        hf_meta = torch.clamp(dec_raw, max=255) | (hf_ok.to(_I32) << 8)
 
-    aux = segdelta_t[pat] | (isstart_t[pat] << 16)
-    key = monotone_i32(blk.importance.reshape(b, p_tot))
+        aux = segdelta_t[pat] | (isstart_t[pat] << 16)
+        key = monotone_i32(blk.importance.reshape(b, p_tot))
 
-    wc = blk.window_ctrl.to(_I32)
-    header = torch.stack([wc & 0xF, (wc >> 4) & 0xF], dim=-1)
-    n_header = torch.where((wc & 0x8) != 0, 2, 1).to(_I32)
-    gap = {}
-    if cfg.noise_run_window == "gap":
-        gap = {"cw": torch.cat([cw_a, tot[:, 0]], dim=-1),
-               "cwy": torch.cat([cwy_a, tot[:, 1]], dim=-1)}
-    return FastBlockData(coef, aux, key, amp_noise, amp_lin, hf_meta, wc, header, n_header, **gap)
+        wc = blk.window_ctrl.to(_I32)
+        header = torch.stack([wc & 0xF, (wc >> 4) & 0xF], dim=-1)
+        n_header = torch.where((wc & 0x8) != 0, 2, 1).to(_I32)
+        gap = {}
+        if cfg.noise_run_window == "gap":
+            gap = {"cw": torch.cat([cw_a, tot[:, 0]], dim=-1),
+                   "cwy": torch.cat([cwy_a, tot[:, 1]], dim=-1)}
+        return FastBlockData(coef, aux, key, amp_noise, amp_lin, hf_meta, wc, header, n_header, **gap)
 
 
 def _qmin_ge(m: torch.Tensor, thr_kind: str) -> torch.Tensor:
@@ -248,23 +251,24 @@ def make_planes(fb: FastBlockData) -> Planes:
     def pb(x):
         return x.t().contiguous()
 
-    hdr = (fb.header[:, 0] | (fb.header[:, 1] << 4) | (fb.n_header << 8)).to(_I32).contiguous()
-    # ~key reverses the i32 order exactly, so a stable ascending sort of
-    # ~key is the descending key order with ties by ascending position
-    skinv, sidx = torch.sort(~fb.key, dim=1, stable=True)
-    return Planes(
-        coef=pb(fb.coef),
-        thr=pb(thr_plane(fb.coef, fb.amp_noise, fb.amp_lin, fb.hf_meta)),
-        aux=pb(fb.aux.to(_I32)),
-        key=pb(fb.key),
-        ampn=pb(fb.amp_noise),
-        hfamp=pb(fb.amp_lin),
-        hfmeta=pb(fb.hf_meta.to(_I32)),
-        hdr=hdr,
-        skey=~skinv,
-        sidx=sidx.to(_I32),
-        gap=() if fb.cw is None else (pb(fb.cw), pb(fb.cwy)),
-    )
+    with span("ulcx.encode.bitstream.planes"):
+        hdr = (fb.header[:, 0] | (fb.header[:, 1] << 4) | (fb.n_header << 8)).to(_I32).contiguous()
+        # ~key reverses the i32 order exactly, so a stable ascending sort of
+        # ~key is the descending key order with ties by ascending position
+        skinv, sidx = torch.sort(~fb.key, dim=1, stable=True)
+        return Planes(
+            coef=pb(fb.coef),
+            thr=pb(thr_plane(fb.coef, fb.amp_noise, fb.amp_lin, fb.hf_meta)),
+            aux=pb(fb.aux.to(_I32)),
+            key=pb(fb.key),
+            ampn=pb(fb.amp_noise),
+            hfamp=pb(fb.amp_lin),
+            hfmeta=pb(fb.hf_meta.to(_I32)),
+            hdr=hdr,
+            skey=~skinv,
+            sidx=sidx.to(_I32),
+            gap=() if fb.cw is None else (pb(fb.cw), pb(fb.cwy)),
+        )
 
 
 def _tc_of(pl: Planes, nn: torch.Tensor):
@@ -313,15 +317,17 @@ def _sizes_of(bits: torch.Tensor, n_header: torch.Tensor) -> torch.Tensor:
 
 def round_sizes(pl: Planes, n_header, nn, w: ek.Walks = ek.KERNEL_WALKS) -> torch.Tensor:
     """One size-only round: byte-aligned sizes [B, 8] of candidates nn."""
-    return _sizes_of(w.p3_size(pl.thr, pl.aux, _state(pl, nn, w), *pl.gap), n_header)
+    with span("ulcx.encode.bitstream.size_round"):
+        return _sizes_of(w.p3_size(pl.thr, pl.aux, _state(pl, nn, w), *pl.gap), n_header)
 
 
 def _materialize(pl: Planes, nn, max_bytes: int, w: ek.Walks):
     """Final round: (bits, words, freg, fwc) for candidates nn [B, 8]."""
-    return w.p3_materialize(
-        pl.coef, pl.ampn, pl.hfamp, pl.hfmeta, pl.aux, _state(pl, nn, w), pl.hdr, max_bytes // 4,
-        *pl.gap
-    )
+    with span("ulcx.encode.bitstream.final"):
+        return w.p3_materialize(
+            pl.coef, pl.ampn, pl.hfamp, pl.hfmeta, pl.aux, _state(pl, nn, w), pl.hdr, max_bytes // 4,
+            *pl.gap
+        )
 
 
 def _every_slot(n: torch.Tensor) -> torch.Tensor:

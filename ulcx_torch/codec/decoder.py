@@ -26,6 +26,7 @@ import torch
 from ulcx_torch.bitstream.decode import decode_block_tokens, expand_records
 from ulcx_torch.bitstream.decode_kernels import SEED
 from ulcx_torch.bitstream.fast_decode import (  # noqa: F401
+    _decode_tokens,
     _header_and_tokens,
     bytes_to_nybbles,
     decode_block_fast,
@@ -37,6 +38,7 @@ from ulcx_torch.codec.transform_batched import block_imdct_batched, last_subbloc
 from ulcx_torch.ops.rngjump import jump
 from ulcx_torch.utils.config import CodecConfig
 from ulcx_torch.utils.device import on_device
+from ulcx_torch.utils.profiling import span
 
 
 class DecoderCarry(NamedTuple):
@@ -98,11 +100,11 @@ def _window_span(streams: torch.Tensor, window_bytes: int) -> torch.Tensor:
     return torch.arange(window_bytes, device=streams.device)
 
 
-def _windows(streams: torch.Tensor, offset: torch.Tensor, span: torch.Tensor) -> torch.Tensor:
-    """Each stream's window [B, W] at its byte offset [B] (``span`` from
+def _windows(streams: torch.Tensor, offset: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Each stream's window [B, W] at its byte offset [B] (``cols`` from
     ``_window_span``); a start past S - W is clamped there."""
-    start = torch.clamp(offset, max=streams.shape[1] - span.shape[0])
-    return torch.gather(streams, 1, start[:, None] + span)
+    start = torch.clamp(offset, max=streams.shape[1] - cols.shape[0])
+    return torch.gather(streams, 1, start[:, None] + cols)
 
 
 def _decode_blocks(streams: torch.Tensor, n_blocks: int, window_bytes: int, cfg: CodecConfig,
@@ -111,18 +113,21 @@ def _decode_blocks(streams: torch.Tensor, n_blocks: int, window_bytes: int, cfg:
     ``offset`` [B] int64 and ``carry``. Returns (pcm [B, n_blocks, C, N],
     bits, corrupt [B, n_blocks], (offset, carry) after the last block)."""
     lap, prev_ss, seed = carry
-    span = _window_span(streams, window_bytes)
-    pcms, bits_all, corrupt_all = [], [], []
-    for _ in range(n_blocks):
-        coefs, wc, bits, corrupt, seed = decode_block_fast(_windows(streams, offset, span), seed,
-                                                           cfg)
-        pcm, lap, prev_ss = block_imdct_batched(coefs, wc, lap, prev_ss, cfg)
-        pcms.append(inverse_ms(pcm))
-        bits_all.append(bits)
-        corrupt_all.append(corrupt)
-        offset = offset + (bits + 7) // 8
-    return (torch.stack(pcms, 1), torch.stack(bits_all, 1), torch.stack(corrupt_all, 1),
-            (offset, DecoderCarry(lap, prev_ss, seed)))
+    with span("ulcx.decode"):
+        cols = _window_span(streams, window_bytes)
+        pcms, bits_all, corrupt_all = [], [], []
+        for _ in range(n_blocks):
+            with span("ulcx.decode.tokens"):
+                tokens = _header_and_tokens(_windows(streams, offset, cols))
+            coefs, wc, bits, corrupt, seed = _decode_tokens(*tokens, seed, cfg)
+            pcm, lap, prev_ss = block_imdct_batched(coefs, wc, lap, prev_ss, cfg)
+            with span("ulcx.decode.ms"):
+                pcms.append(inverse_ms(pcm))
+                offset = offset + (bits + 7) // 8
+            bits_all.append(bits)
+            corrupt_all.append(corrupt)
+        return (torch.stack(pcms, 1), torch.stack(bits_all, 1), torch.stack(corrupt_all, 1),
+                (offset, DecoderCarry(lap, prev_ss, seed)))
 
 
 def decode_stream_batched(streams: torch.Tensor, n_blocks: int, window_bytes: int,
@@ -192,35 +197,41 @@ def decode_stream_pipelined(stream, n_blocks: int, window_bytes: int, cfg: Codec
         one inverse transform from zero laps gives every lap, and a
         second, with the laps shifted by one block, the PCM; then M/S.
     Nothing synchronises with the host."""
-    stream, offset, carry = _one_stream(stream, offset, carry, cfg, device)
-    n, c = cfg.block_size, cfg.n_chan
-    w = walks(cfg)
-    span = _window_span(stream[None], window_bytes)
-    flags, wcs, bits, corrupt = [], [], [], []
-    for _ in range(n_blocks):
-        wc, hdr, tokens = _header_and_tokens(_windows(stream[None], offset, span))
-        fl, consumed, bad = w.fsm_place(wc, tokens, n * c, n)
-        b = 4 * (hdr + consumed)
-        offset = offset + (b + 7) // 8
-        flags.append(fl)
-        wcs.append(wc)
-        bits.append(b)
-        corrupt.append(bad == 1)
-    flags = torch.cat(flags, 1)  # [P, T]
-    wc, bits, corrupt = torch.cat(wcs), torch.cat(bits), torch.cat(corrupt)
+    with span("ulcx.decode"):
+        stream, offset, carry = _one_stream(stream, offset, carry, cfg, device)
+        n, c = cfg.block_size, cfg.n_chan
+        w = walks(cfg)
+        cols = _window_span(stream[None], window_bytes)
+        flags, wcs, bits, corrupt = [], [], [], []
+        for _ in range(n_blocks):
+            with span("ulcx.decode.tokens"):
+                wc, hdr, tokens = _header_and_tokens(_windows(stream[None], offset, cols))
+            with span("ulcx.decode.fsm_place"):
+                fl, consumed, bad = w.fsm_place(wc, tokens, n * c, n)
+                b = 4 * (hdr + consumed)
+                offset = offset + (b + 7) // 8
+            flags.append(fl)
+            wcs.append(wc)
+            bits.append(b)
+            corrupt.append(bad == 1)
+        with span("ulcx.decode.expand"):
+            flags = torch.cat(flags, 1)  # [P, T]
+            wc, bits, corrupt = torch.cat(wcs), torch.cat(bits), torch.cat(corrupt)
+            draws = draw_counts(flags.T)
+            seeds = jump(carry.rng.expand(n_blocks), torch.cumsum(draws, 0) - draws)
+            coef, seed_after = w.rng_expand(flags, seeds)
+            coefs = torch.where(corrupt[None], 0.0, coef).T.contiguous().reshape(n_blocks, c, n)
 
-    draws = draw_counts(flags.T)
-    seeds = jump(carry.rng.expand(n_blocks), torch.cumsum(draws, 0) - draws)
-    coef, seed_after = w.rng_expand(flags, seeds)
-    coefs = torch.where(corrupt[None], 0.0, coef).T.contiguous().reshape(n_blocks, c, n)
-
-    last_ss = last_subblock_size(wc, cfg)
-    prev_ss = torch.cat([carry.prev_last_ss, last_ss[:-1]])
-    zero_lap = torch.zeros((n_blocks, c, n // 2), dtype=torch.float32, device=stream.device)
-    _, new_lap, _ = block_imdct_batched(coefs, wc, zero_lap, prev_ss, cfg)
-    pcm, _, _ = block_imdct_batched(coefs, wc, torch.cat([carry.lap, new_lap[:-1]]), prev_ss, cfg)
-    carry = DecoderCarry(new_lap[-1], last_ss[-1], seed_after[-1])
-    return inverse_ms(pcm), bits, corrupt, (offset[0], carry)
+        last_ss = last_subblock_size(wc, cfg)
+        prev_ss = torch.cat([carry.prev_last_ss, last_ss[:-1]])
+        zero_lap = torch.zeros((n_blocks, c, n // 2), dtype=torch.float32, device=stream.device)
+        _, new_lap, _ = block_imdct_batched(coefs, wc, zero_lap, prev_ss, cfg)
+        pcm, _, _ = block_imdct_batched(coefs, wc, torch.cat([carry.lap, new_lap[:-1]]), prev_ss,
+                                        cfg)
+        carry = DecoderCarry(new_lap[-1], last_ss[-1], seed_after[-1])
+        with span("ulcx.decode.ms"):
+            pcm = inverse_ms(pcm)
+        return pcm, bits, corrupt, (offset[0], carry)
 
 
 def decode_block(window: torch.Tensor, carry: DecoderCarry, cfg: CodecConfig):
@@ -233,9 +244,15 @@ def decode_block(window: torch.Tensor, carry: DecoderCarry, cfg: CodecConfig):
     bits, corrupt flags, coefficients and PCM are those of
     ``decode_stream`` (whose placing FSM fuses the placement)."""
     n, c = cfg.block_size, cfg.n_chan
-    wc, hdr, tokens = _header_and_tokens(window[None])
-    records, consumed, corrupt = decode_block_tokens(tokens[:, 0], wc[0], cfg)
-    flat, rng = expand_records(records, carry.rng, n * c, cfg.use_pallas)
-    coefs = torch.where(corrupt, 0.0, flat).reshape(c, n)
-    pcm, lap, last_ss = block_imdct(coefs, wc[0], carry.lap, carry.prev_last_ss, cfg)
-    return inverse_ms(pcm), DecoderCarry(lap, last_ss, rng), 4 * (hdr[0] + consumed), corrupt
+    with span("ulcx.decode"):
+        with span("ulcx.decode.tokens"):
+            wc, hdr, tokens = _header_and_tokens(window[None])
+        with span("ulcx.decode.fsm_place"):
+            records, consumed, corrupt = decode_block_tokens(tokens[:, 0], wc[0], cfg)
+        with span("ulcx.decode.expand"):
+            flat, rng = expand_records(records, carry.rng, n * c, cfg.use_pallas)
+            coefs = torch.where(corrupt, 0.0, flat).reshape(c, n)
+        pcm, lap, last_ss = block_imdct(coefs, wc[0], carry.lap, carry.prev_last_ss, cfg)
+        with span("ulcx.decode.ms"):
+            pcm = inverse_ms(pcm)
+        return pcm, DecoderCarry(lap, last_ss, rng), 4 * (hdr[0] + consumed), corrupt

@@ -40,6 +40,7 @@ from ulcx_torch.bitstream.fast_encode import (
 )
 from ulcx_torch.utils.config import CodecConfig
 from ulcx_torch.utils.device import on_device
+from ulcx_torch.utils.profiling import span
 
 _E_TO_E = float(np.float32(float.fromhex("0x1.E4EFB7p3")))  # e^e
 _F32 = torch.float32
@@ -111,18 +112,20 @@ def _encode_analyzed_fast(blk: AnalyzedBlock, cfg: CodecConfig, mode: str, kerne
                           **kw) -> EncodedBlock:
     """Bitstream stages of a batch of analyzed blocks, on the kernel
     path's plan (``kernel``, see ``_use_kernel``) or the scan path's."""
-    fb = prepare_fast(blk, cfg)
-    if mode == "vbr":
-        size, data = materialize_fast(fb, _vbr_counts(blk, kw["quality"], cfg), cfg, max_block_bytes(cfg))
-    elif mode in ("cbr", "abr"):
-        rate = torch.tensor(float(kw["rate_kbps"]), dtype=_F32, device=blk.complexity.device)
-        if mode == "abr":
-            rate = rate * blk.complexity / torch.tensor(float(kw["avg_complexity"]), dtype=_F32)
-        budget = cbr_bit_budget(cfg, rate).expand(blk.n_nz.shape)
-        search = search_materialize_fast if kernel else search_materialize_scan
-        _, size, data = search(fb, blk.n_nz, budget, cfg, max_block_bytes(cfg))
-    else:
-        raise ValueError(mode)
+    with span("ulcx.encode.bitstream"):
+        fb = prepare_fast(blk, cfg)
+        if mode == "vbr":
+            size, data = materialize_fast(fb, _vbr_counts(blk, kw["quality"], cfg), cfg,
+                                          max_block_bytes(cfg))
+        elif mode in ("cbr", "abr"):
+            rate = torch.tensor(float(kw["rate_kbps"]), dtype=_F32, device=blk.complexity.device)
+            if mode == "abr":
+                rate = rate * blk.complexity / torch.tensor(float(kw["avg_complexity"]), dtype=_F32)
+            budget = cbr_bit_budget(cfg, rate).expand(blk.n_nz.shape)
+            search = search_materialize_fast if kernel else search_materialize_scan
+            _, size, data = search(fb, blk.n_nz, budget, cfg, max_block_bytes(cfg))
+        else:
+            raise ValueError(mode)
     return EncodedBlock(data, size, blk.complexity, blk.window_ctrl)
 
 
@@ -162,8 +165,10 @@ def encode_block_batched(carry: EncoderCarry, new_blocks: torch.Tensor, cfg: Cod
                          mode: str, **kw):
     """One block step for a batch: carry with leading [B], new_blocks
     [B, C, N]. Returns (new carry, EncodedBlock with leading [B])."""
-    carry, blk = analyze_block_batched(carry, new_blocks, cfg)
-    return carry, _encode_analyzed_fast(blk, cfg, mode, _use_kernel(cfg, new_blocks.shape[0]), **kw)
+    with span("ulcx.encode"):
+        carry, blk = analyze_block_batched(carry, new_blocks, cfg)
+        return carry, _encode_analyzed_fast(blk, cfg, mode, _use_kernel(cfg, new_blocks.shape[0]),
+                                            **kw)
 
 
 def _stack(xs, dim: int):
@@ -193,34 +198,35 @@ def encode_stream_batched(blocks: torch.Tensor, cfg: CodecConfig, mode: str,
     fold wherever B and fold * B streams take the same plan
     (``_use_kernel``; in ulcx alike). A fold that does not divide T
     counts as 1, block by block."""
-    b, t = blocks.shape[0], blocks.shape[1]
-    if carry is None:
-        carry = init_carry_batched(cfg, b, blocks.device)
+    with span("ulcx.encode"):
+        b, t = blocks.shape[0], blocks.shape[1]
+        if carry is None:
+            carry = init_carry_batched(cfg, b, blocks.device)
 
-    if cfg.flat_stream:
-        carry, blk = analyze_stream_batched(carry, blocks, cfg)
-        enc = _encode_analyzed_fast(blk, cfg, mode, _use_kernel(cfg, b * t), **kw)
-        out = _map(lambda x: x.reshape((b, t) + x.shape[1:]), enc)
-        if scan_major:
+        if cfg.flat_stream:
+            carry, blk = analyze_stream_batched(carry, blocks, cfg)
+            enc = _encode_analyzed_fast(blk, cfg, mode, _use_kernel(cfg, b * t), **kw)
+            out = _map(lambda x: x.reshape((b, t) + x.shape[1:]), enc)
+            if scan_major:
+                out = _map(lambda x: x.transpose(0, 1), out)
+            return out, carry
+
+        # one loop: analysis block by block, the bitstream stages once per
+        # chunk of fold blocks. Streams are independent, so a chunk's [fold, B]
+        # blocks are one batch of fold * B streams (fold = 1: block by block)
+        fold = cfg.fold_bitstream if t % cfg.fold_bitstream == 0 else 1
+        encs = []
+        for j in range(0, t, fold):
+            blks = []
+            for k in range(j, j + fold):
+                carry, blk = analyze_block_batched(carry, blocks[:, k], cfg)
+                blks.append(blk)
+            chunk = _map(lambda x: x.flatten(0, 1), _stack(blks, 0))
+            encs.append(_encode_analyzed_fast(chunk, cfg, mode, _use_kernel(cfg, fold * b), **kw))
+        out = _map(lambda x: x.reshape((t, b) + x.shape[2:]), _stack(encs, 0))
+        if not scan_major:
             out = _map(lambda x: x.transpose(0, 1), out)
         return out, carry
-
-    # one loop: analysis block by block, the bitstream stages once per
-    # chunk of fold blocks. Streams are independent, so a chunk's [fold, B]
-    # blocks are one batch of fold * B streams (fold = 1: block by block)
-    fold = cfg.fold_bitstream if t % cfg.fold_bitstream == 0 else 1
-    encs = []
-    for j in range(0, t, fold):
-        blks = []
-        for k in range(j, j + fold):
-            carry, blk = analyze_block_batched(carry, blocks[:, k], cfg)
-            blks.append(blk)
-        chunk = _map(lambda x: x.flatten(0, 1), _stack(blks, 0))
-        encs.append(_encode_analyzed_fast(chunk, cfg, mode, _use_kernel(cfg, fold * b), **kw))
-    out = _map(lambda x: x.reshape((t, b) + x.shape[2:]), _stack(encs, 0))
-    if not scan_major:
-        out = _map(lambda x: x.transpose(0, 1), out)
-    return out, carry
 
 
 def encode_stream(blocks, cfg: CodecConfig, mode: str, carry: EncoderCarry | None = None,
@@ -255,5 +261,6 @@ def encode_block(carry: EncoderCarry, new_block: torch.Tensor, cfg: CodecConfig,
     Returns (new carry, EncodedBlock), computed where ``new_block``
     lies. Its bytes are those of ``encode_stream`` wherever a call takes
     the scan path's plan (a call of a length that is no multiple of 8)."""
-    carry, blk = analyze_block(carry, new_block, cfg)
-    return carry, _encode_analyzed(blk, cfg, mode, **kw)
+    with span("ulcx.encode"):
+        carry, blk = analyze_block(carry, new_block, cfg)
+        return carry, _encode_analyzed(blk, cfg, mode, **kw)

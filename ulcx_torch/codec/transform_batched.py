@@ -26,6 +26,7 @@ from ulcx_torch.ops.patterns import (
     pattern_transient_flags,
 )
 from ulcx_torch.utils.config import CodecConfig
+from ulcx_torch.utils.profiling import span
 
 N_CLASSES = 4
 
@@ -97,13 +98,14 @@ def device_tables(block_size: int, device: torch.device):
     """``candidate_tables`` as tensors on ``device``, plus each
     candidate's class shift [15] and, per pattern, its first and last
     active candidate [16] and each candidate's next active one [16, 15]."""
-    t = {k: torch.from_numpy(v).to(device) for k, v in candidate_tables(block_size).items()}
-    t["c_shift"] = torch.tensor([c for c, _ in candidate_list()], dtype=torch.int32, device=device)
-    order = torch.from_numpy(_cand_order()).to(device)
-    t["first"] = _first_active(t["act"], order)
-    t["last"] = _last_active(t["act"], order)
-    t["next"] = torch.stack([_next_active(t["act"], order, k) for k in range(order.numel())], 1)
-    return t
+    with span("ulcx.build.device_tables"):
+        t = {k: torch.from_numpy(v).to(device) for k, v in candidate_tables(block_size).items()}
+        t["c_shift"] = torch.tensor([c for c, _ in candidate_list()], dtype=torch.int32, device=device)
+        order = torch.from_numpy(_cand_order()).to(device)
+        t["first"] = _first_active(t["act"], order)
+        t["last"] = _last_active(t["act"], order)
+        t["next"] = torch.stack([_next_active(t["act"], order, k) for k in range(order.numel())], 1)
+        return t
 
 
 def boundary_overlaps_batched(window_ctrl, prev_last_ss, next_overlap, cfg: CodecConfig):
@@ -133,33 +135,34 @@ def boundary_overlaps_batched(window_ctrl, prev_last_ss, next_overlap, cfg: Code
 def block_mdct_mdst_batched(samples, window_ctrl, prev_last_ss, next_overlap, cfg: CodecConfig):
     """Batched forward transform: samples [B, C, 2N] -> (mdct, mdst)
     [B, C, N], each normalized by 2/SubBlockSize."""
-    n = cfg.block_size
-    b, c, _ = samples.shape
-    o_l, o_r = boundary_overlaps_batched(window_ctrl, prev_last_ss, next_overlap, cfg)
+    with span("ulcx.encode.analysis.transform"):
+        n = cfg.block_size
+        b, c, _ = samples.shape
+        o_l, o_r = boundary_overlaps_batched(window_ctrl, prev_last_ss, next_overlap, cfg)
 
-    outs_c, outs_s = [], []
-    k = 0
-    for cls in range(N_CLASSES):
-        ss = n >> cls
-        npos = 1 << cls
-        # frame i starts at N/2 + i*ss - ss/2 and spans 2*ss samples
-        start = n // 2 - ss // 2
-        frames = samples[..., start : start + (npos + 1) * ss].unfold(-1, 2 * ss, ss)
-        wl = rise_window(ss, o_l[:, k : k + npos])
-        wr = rise_window(ss, o_r[:, k : k + npos]).flip(-1)
-        z = frames * torch.cat([wl, wr], dim=-1)[:, None]  # [B, C, npos, 2ss]
-        mc, ms = dct4_dst4(mdct_fold(z), mdst_fold(z), cfg.transform_for(ss))
-        norm = 2.0 / ss
-        outs_c.append((-mc * norm).reshape(b, c, n))
-        outs_s.append((-ms * norm).reshape(b, c, n))
-        k += npos
+        outs_c, outs_s = [], []
+        k = 0
+        for cls in range(N_CLASSES):
+            ss = n >> cls
+            npos = 1 << cls
+            # frame i starts at N/2 + i*ss - ss/2 and spans 2*ss samples
+            start = n // 2 - ss // 2
+            frames = samples[..., start : start + (npos + 1) * ss].unfold(-1, 2 * ss, ss)
+            wl = rise_window(ss, o_l[:, k : k + npos])
+            wr = rise_window(ss, o_r[:, k : k + npos]).flip(-1)
+            z = frames * torch.cat([wl, wr], dim=-1)[:, None]  # [B, C, npos, 2ss]
+            mc, ms = dct4_dst4(mdct_fold(z), mdst_fold(z), cfg.transform_for(ss))
+            norm = 2.0 / ss
+            outs_c.append((-mc * norm).reshape(b, c, n))
+            outs_s.append((-ms * norm).reshape(b, c, n))
+            k += npos
 
-    # per coefficient, the class this stream's pattern uses
-    cls_map = device_tables(n, samples.device)["cls_coef"][(window_ctrl >> 4).long()]
-    idx = cls_map.long()[:, None, :, None].expand(b, c, n, 1)
-    mdct = torch.gather(torch.stack(outs_c, dim=-1), -1, idx)[..., 0]
-    mdst = torch.gather(torch.stack(outs_s, dim=-1), -1, idx)[..., 0]
-    return mdct, mdst
+        # per coefficient, the class this stream's pattern uses
+        cls_map = device_tables(n, samples.device)["cls_coef"][(window_ctrl >> 4).long()]
+        idx = cls_map.long()[:, None, :, None].expand(b, c, n, 1)
+        mdct = torch.gather(torch.stack(outs_c, dim=-1), -1, idx)[..., 0]
+        mdst = torch.gather(torch.stack(outs_s, dim=-1), -1, idx)[..., 0]
+        return mdct, mdst
 
 
 def _first_active(act, order):
@@ -195,65 +198,66 @@ def block_imdct_batched(coefs, window_ctrl, lap, prev_last_ss, cfg: CodecConfig)
     Every candidate of a class is synthesized and windowed at once; the
     candidates' halves are added into the output in candidate order, as
     ulcx adds them (each under its activity mask)."""
-    n = cfg.block_size
-    h = n // 2
-    b, c, _ = coefs.shape
-    dev = coefs.device
-    t = device_tables(n, dev)
-    pat = (window_ctrl >> 4).long()
-    act = t["act"][pat] == 1  # [B, 15]
-    o_l, _ = boundary_overlaps_batched(window_ctrl, prev_last_ss, torch.full_like(window_ctrl, n), cfg)
-    j = torch.arange(n, device=dev)
-    ext = torch.zeros((b, c, n + h), dtype=torch.float32, device=dev)
+    with span("ulcx.decode.imdct"):
+        n = cfg.block_size
+        h = n // 2
+        b, c, _ = coefs.shape
+        dev = coefs.device
+        t = device_tables(n, dev)
+        pat = (window_ctrl >> 4).long()
+        act = t["act"][pat] == 1  # [B, 15]
+        o_l, _ = boundary_overlaps_batched(window_ctrl, prev_last_ss, torch.full_like(window_ctrl, n), cfg)
+        j = torch.arange(n, device=dev)
+        ext = torch.zeros((b, c, n + h), dtype=torch.float32, device=dev)
 
-    # the previous block's deferred-window contribution: around
-    # fs = h - prev_last_ss/2 the lap reads as identity prefix, reversed
-    # middle, shifted tail, then zeros; nothing when prev_last_ss is no
-    # subblock size (0 at a stream's start)
-    fs = (h - prev_last_ss // 2).long()[:, None]  # [B, 1]
-    src = torch.where(j < fs, j, torch.where(j < h, h - 1 - j + fs, j - h + fs))
-    known = (prev_last_ss[:, None] == (n >> t["c_shift"])).any(dim=-1)[:, None]
-    live = known & (j < n - fs)
-    pc = torch.gather(lap, -1, torch.where(live, src, 0)[:, None].expand(b, c, n))
-    first_ol = o_l.gather(1, t["first"][pat][:, None])[:, 0]
-    w_prev = rise_window(n, first_ol).flip(-1)  # [B, N]
-    ext[..., :n] += torch.where(live[:, None], pc, 0.0) * w_prev[:, None]
+        # the previous block's deferred-window contribution: around
+        # fs = h - prev_last_ss/2 the lap reads as identity prefix, reversed
+        # middle, shifted tail, then zeros; nothing when prev_last_ss is no
+        # subblock size (0 at a stream's start)
+        fs = (h - prev_last_ss // 2).long()[:, None]  # [B, 1]
+        src = torch.where(j < fs, j, torch.where(j < h, h - 1 - j + fs, j - h + fs))
+        known = (prev_last_ss[:, None] == (n >> t["c_shift"])).any(dim=-1)[:, None]
+        live = known & (j < n - fs)
+        pc = torch.gather(lap, -1, torch.where(live, src, 0)[:, None].expand(b, c, n))
+        first_ol = o_l.gather(1, t["first"][pat][:, None])[:, 0]
+        w_prev = rise_window(n, first_ol).flip(-1)  # [B, N]
+        ext[..., :n] += torch.where(live[:, None], pc, 0.0) * w_prev[:, None]
 
-    last_k = t["last"][pat]  # [B]
-    last_ss = (n >> t["c_shift"][last_k]).to(torch.int32)
-    is_last = last_k[:, None] == torch.arange(act.shape[1], device=dev)  # [B, 15]
-    o_r = torch.clamp(o_l.gather(1, t["next"][pat]), max=(n >> t["c_shift"]))  # [B, 15]
+        last_k = t["last"][pat]  # [B]
+        last_ss = (n >> t["c_shift"][last_k]).to(torch.int32)
+        is_last = last_k[:, None] == torch.arange(act.shape[1], device=dev)  # [B, 15]
+        o_r = torch.clamp(o_l.gather(1, t["next"][pat]), max=(n >> t["c_shift"]))  # [B, 15]
 
-    v_last = torch.zeros((b, c, h), dtype=torch.float32, device=dev)
-    k = 0
-    for cls in range(N_CLASSES):
-        ss = n >> cls
-        npos = 1 << cls
-        cand = slice(k, k + npos)
-        v = imdct_halfspec(coefs.reshape(b, c, npos, ss), cfg.transform_for(ss))
-        wl = rise_window(ss, o_l[:, cand])  # [B, npos, ss]
-        wr = rise_window(ss, o_r[:, cand]).flip(-1)
-        w = torch.cat([wl, torch.where(is_last[:, cand, None], 0.0, wr)], dim=-1)
-        w = torch.where(act[:, cand, None], w, 0.0)
-        y = imdct_expand(v) * w[:, None]  # [B, C, npos, 2ss]
-        # frame i starts at h - ss/2 + i*ss: its first half meets frame
-        # i-1's second half; the end-of-block frame's second half waits
-        # in the lap (v_last)
-        a = h - ss // 2
-        if npos > 1:
-            ext[..., a + ss : a + npos * ss] += y[..., :-1, ss:].reshape(b, c, -1)
-        ext[..., a : a + npos * ss] += y[..., :ss].reshape(b, c, -1)
-        here = is_last[:, cand]  # [B, npos]
-        pick = here.long().argmax(dim=1)[:, None, None, None].expand(b, c, 1, ss // 2)
-        vi = torch.gather(v[..., : ss // 2], 2, pick)[:, :, 0]
-        v_last = torch.where(here.any(dim=1)[:, None, None],
-                             torch.nn.functional.pad(vi, (0, h - ss // 2)), v_last)
-        k += npos
+        v_last = torch.zeros((b, c, h), dtype=torch.float32, device=dev)
+        k = 0
+        for cls in range(N_CLASSES):
+            ss = n >> cls
+            npos = 1 << cls
+            cand = slice(k, k + npos)
+            v = imdct_halfspec(coefs.reshape(b, c, npos, ss), cfg.transform_for(ss))
+            wl = rise_window(ss, o_l[:, cand])  # [B, npos, ss]
+            wr = rise_window(ss, o_r[:, cand]).flip(-1)
+            w = torch.cat([wl, torch.where(is_last[:, cand, None], 0.0, wr)], dim=-1)
+            w = torch.where(act[:, cand, None], w, 0.0)
+            y = imdct_expand(v) * w[:, None]  # [B, C, npos, 2ss]
+            # frame i starts at h - ss/2 + i*ss: its first half meets frame
+            # i-1's second half; the end-of-block frame's second half waits
+            # in the lap (v_last)
+            a = h - ss // 2
+            if npos > 1:
+                ext[..., a + ss : a + npos * ss] += y[..., :-1, ss:].reshape(b, c, -1)
+            ext[..., a : a + npos * ss] += y[..., :ss].reshape(b, c, -1)
+            here = is_last[:, cand]  # [B, npos]
+            pick = here.long().argmax(dim=1)[:, None, None, None].expand(b, c, 1, ss // 2)
+            vi = torch.gather(v[..., : ss // 2], 2, pick)[:, :, 0]
+            v_last = torch.where(here.any(dim=1)[:, None, None],
+                                 torch.nn.functional.pad(vi, (0, h - ss // 2)), v_last)
+            k += npos
 
-    # new lap: the spill left of f_new = h - last_ss/2, then v_last
-    # shifted right by f_new
-    jh = j[:h]
-    f_new = (h - last_ss // 2).long()[:, None]
-    shifted = torch.gather(v_last, -1, (jh - f_new).clamp(min=0)[:, None].expand(b, c, h))
-    new_lap = torch.where((jh < f_new)[:, None], ext[..., n : n + h], shifted)
-    return ext[..., :n], new_lap, last_ss
+        # new lap: the spill left of f_new = h - last_ss/2, then v_last
+        # shifted right by f_new
+        jh = j[:h]
+        f_new = (h - last_ss // 2).long()[:, None]
+        shifted = torch.gather(v_last, -1, (jh - f_new).clamp(min=0)[:, None].expand(b, c, h))
+        new_lap = torch.where((jh < f_new)[:, None], ext[..., n : n + h], shifted)
+        return ext[..., :n], new_lap, last_ss

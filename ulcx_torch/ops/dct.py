@@ -32,6 +32,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ulcx_torch.utils.profiling import span
+
 
 def _basis(n: int, fn) -> np.ndarray:
     k = np.arange(n, dtype=np.float64)
@@ -41,10 +43,11 @@ def _basis(n: int, fn) -> np.ndarray:
 @lru_cache(maxsize=32)
 def _matrices(n: int, device: torch.device):
     """(cos basis, sin basis) [n, n] on ``device``, built once per size."""
-    return (
-        torch.from_numpy(_basis(n, np.cos)).to(device),
-        torch.from_numpy(_basis(n, np.sin)).to(device),
-    )
+    with span("ulcx.build.dct_matrices"):
+        return (
+            torch.from_numpy(_basis(n, np.cos)).to(device),
+            torch.from_numpy(_basis(n, np.sin)).to(device),
+        )
 
 
 def dct4_matmul(x: torch.Tensor) -> torch.Tensor:
@@ -152,8 +155,9 @@ def _fact_consts(n: int):
 def _fact_consts_on(n: int, device: torch.device):
     """``_fact_consts`` as tensors on ``device``: (M1, M2, then real and
     imaginary parts of F2 [M2, M2], mid [M2, M1], F1 [M1, M1])."""
-    m1n, m2n, *pairs = _fact_consts(n)
-    return (m1n, m2n, *(torch.from_numpy(a).to(device) for pair in pairs for a in pair))
+    with span("ulcx.build.dct_fact_consts"):
+        m1n, m2n, *pairs = _fact_consts(n)
+        return (m1n, m2n, *(torch.from_numpy(a).to(device) for pair in pairs for a in pair))
 
 
 def _fact_core(x: torch.Tensor):

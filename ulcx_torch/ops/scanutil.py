@@ -15,6 +15,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ulcx_torch.utils.profiling import span
+
 
 def cumsum_f32(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """f32 prefix sums accumulated in f64: the same values on every
@@ -43,9 +45,10 @@ def _ema_init_weights(length: int, rate: float) -> np.ndarray:
 @lru_cache(maxsize=64)
 def _ema_consts(length: int, rate: float, device: torch.device):
     """(L^T, init weights) on ``device``, built once per shape."""
-    mat_t = torch.from_numpy(_ema_matrix(length, rate).T.copy()).to(device)
-    w = torch.from_numpy(_ema_init_weights(length, rate)).to(device)
-    return mat_t, w
+    with span("ulcx.build.ema_consts"):
+        mat_t = torch.from_numpy(_ema_matrix(length, rate).T.copy()).to(device)
+        w = torch.from_numpy(_ema_init_weights(length, rate)).to(device)
+        return mat_t, w
 
 
 def ema_matmul(v: torch.Tensor, rate: float, init, reverse: bool = False):
