@@ -22,8 +22,9 @@ import torch
 
 from bench import make_corpus
 from chip_smoke import (
-    FLAT_BLOCK_BITS, FLAT_N_NZ_SHARE, FLAT_SIZE_REL, all_coef_window, flat_n_nz_differs,
-    pack_streams, refuse_other_geometry, stream_seeds, synthetic_flags,
+    FLAT_BLOCK_BITS, FLAT_N_NZ_SHARE, FLAT_SIZE_REL, LAP_TOL, all_coef_window, flat_n_nz_differs,
+    imdct_lap_gap, imdct_lap_inputs, pack_streams, refuse_other_geometry, stream_seeds,
+    synthetic_flags,
 )
 from ulcx_torch import _build
 from ulcx_torch.analysis.batched import analyze_block_batched
@@ -31,6 +32,7 @@ from ulcx_torch.bitstream import decode_kernels as dk
 from ulcx_torch.bitstream import encode_kernels as ek
 from ulcx_torch.bitstream import fast_decode as fd
 from ulcx_torch.bitstream import fast_encode as fe
+from ulcx_torch.codec import transform_batched as tb
 from ulcx_torch.codec.decoder import decode_stream, decode_stream_pipelined
 from ulcx_torch.codec.encoder import (
     cbr_bit_budget, encode_stream, init_carry_batched, max_block_bytes,
@@ -254,6 +256,77 @@ def test_decode_path_on_card_matches_cpu(dev):
     assert float(torch.sqrt(torch.mean((pcm.cpu() - pcm_c) ** 2))) <= 1e-5
 
 
+# B = 640 is every (pattern, scale, prev_last_ss) of the 16 x 8 x 5 grid;
+# 13 of them in a drawn order, and one
+@pytest.mark.parametrize("c", [1, 2, 3])
+@pytest.mark.parametrize("n", [256, 2048, 32768])
+def test_imdct_lap_kernel_matches_plain(dev, n, c):
+    """The window-and-lap kernel against its plain version: PCM and lap
+    within LAP_TOL of each row's peak (the share bit-equal printed;
+    equal wherever the kernel's sinf is torch.sin's), last_ss exact, one
+    launch a call."""
+    for b in (640, 13, 1):
+        args = imdct_lap_inputs(b, c, n, dev, seed=n + 7 * b + c)
+        before = tb.imdct_lap.launches
+        got = tb.imdct_lap(*args)
+        torch.cuda.synchronize()
+        assert tb.imdct_lap.launches == before + 1
+        want = tb.imdct_lap_plain(*args)
+        assert [tuple(x.shape) for x in got] == [tuple(x.shape) for x in want]
+        gap, same, last_ok = imdct_lap_gap(got, want)
+        print(f"N={n} C={c} B={b}: {gap:.2e} of the row's peak, {same:.6f} of the values "
+              "bit-equal")
+        assert gap <= LAP_TOL and last_ok
+
+
+def test_imdct_lap_refuses_mixed_devices_types_and_geometry(dev):
+    v, wc, lap, prev = imdct_lap_inputs(4, 2, N, dev, seed=5)
+    with pytest.raises(ValueError, match="several devices"):
+        tb.imdct_lap(v, wc.cpu(), lap, prev)
+    with pytest.raises(TypeError):
+        tb.imdct_lap(v, wc.long(), lap, prev)
+    with pytest.raises(TypeError):
+        tb.imdct_lap([x.double() for x in v], wc, lap, prev)
+    with pytest.raises(ValueError, match="contiguous"):
+        tb.imdct_lap(v, wc, lap.transpose(0, 1).contiguous().transpose(0, 1), prev)
+    with pytest.raises(ValueError, match="shape"):
+        tb.imdct_lap(v, wc, lap[:, :, :-1].contiguous(), prev)
+    # the entry point refuses a geometry other than its own, launching nothing
+    lib = _build.library()
+    g = tb.lap_geometry(4, 2, N)
+    tables, win = tb.lap_tables(N, dev), tb.lap_windows(N, dev)
+    ptrs = (*v, lap, wc, prev, tables, win, torch.empty_like(v[0]), torch.empty_like(lap),
+            torch.empty_like(wc))
+    for ints in ((g["tile"], g["threads"] // 2, tables.numel(), win.numel()),
+                 (g["tile"], g["threads"], tables.numel() - 1, win.numel()),
+                 (g["tile"], g["threads"], tables.numel(), win.numel() - 1)):
+        rc = lib.ulcx_imdct_lap(*(x.data_ptr() for x in ptrs), 4, 2, N, *ints,
+                                torch.cuda.current_stream().cuda_stream)
+        assert rc == 1
+
+
+def test_imdct_lap_on_the_decode_paths(dev):
+    """One launch a block_imdct_batched call on the card: a block in
+    batch_decode, two a call of decode_stream_pipelined; none with
+    use_pallas="off", whose PCM is the kernel path's."""
+    t = 3
+    streams, win, _ = _streams(make_corpus(8, t, N), CFG)
+    tb.imdct_lap.launches = 0
+    pcm, bits, corrupt = batch_decode(streams, t, win, CFG, device=dev)
+    torch.cuda.synchronize()
+    assert tb.imdct_lap.launches == t
+    tb.imdct_lap.launches = 0
+    decode_stream_pipelined(streams[0], t, win, CFG)
+    torch.cuda.synchronize()
+    assert tb.imdct_lap.launches == 2
+    tb.imdct_lap.launches = 0
+    off = dataclasses.replace(CFG, use_pallas="off")
+    got = batch_decode(streams, t, win, off, device=dev)
+    torch.cuda.synchronize()
+    assert tb.imdct_lap.launches == 0
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, (pcm, bits, corrupt)))
+
+
 @pytest.mark.parametrize("n", [4096, 8192])
 @pytest.mark.parametrize("backend", ["fact", "fft"])
 def test_transform_backends_match_dense_on_card(dev, backend, n):
@@ -391,10 +464,12 @@ def test_rate_paths_on_card(dev):
         off = dataclasses.replace(cfg, use_pallas="off")
         ek.reset_launch_counts()
         dk.reset_launch_counts()
+        tb.imdct_lap.launches = 0
         got, _ = batch_encode(x, off, "cbr", rate_kbps=128.0, device=dev)
         got_dec = batch_decode(streams, t, win, off, device=dev)
         torch.cuda.synchronize()
-        assert not any({**ek.launch_counts(), **dk.launch_counts()}.values())
+        assert not any({**ek.launch_counts(), **dk.launch_counts(),
+                        "imdct_lap": tb.imdct_lap.launches}.values())
         assert torch.equal(got.data, ref.data) and torch.equal(got.size_bits, ref.size_bits)
         assert all(torch.equal(a, b_) for a, b_ in zip(got_dec, dec))
 

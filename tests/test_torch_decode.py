@@ -104,7 +104,7 @@ def test_decode_block_fast_matches_ulcx(enc):
     assert not corrupt.any()
 
 
-@pytest.mark.parametrize("n", [256, 1024])
+@pytest.mark.parametrize("n", [256, 1024, 2048])
 def test_block_imdct_batched_matches(n):
     """All 16 patterns x every transient scale class x every previous
     last-subblock size (0 at a stream's start), random coefs and laps."""
@@ -127,6 +127,35 @@ def test_block_imdct_batched_matches(n):
         scale = np.abs(w).max(axis=(1, 2), keepdims=True)
         assert (np.abs(g.numpy() - w) <= 1e-5 * scale).all(), name
     np.testing.assert_array_equal(got[2].numpy(), want[2])
+
+
+def test_imdct_lap_runs_plain_on_cpu():
+    """On CPU tensors the window-and-lap wrapper runs its plain version
+    and launches nothing, whatever use_pallas says; its table holds the
+    parts the kernel reads, in its order."""
+    rng = np.random.default_rng(7)
+    b = 16
+    wc = torch.from_numpy((np.arange(b) << 4 | rng.integers(0, 8, b)).astype(np.int32))
+    prev = torch.from_numpy(rng.choice([0, N, N // 2, N // 4, N // 8], b).astype(np.int32))
+    coefs = torch.from_numpy(rng.standard_normal((b, C, N)).astype(np.float32))
+    lap = torch.from_numpy(rng.standard_normal((b, C, N // 2)).astype(np.float32))
+    ttb.imdct_lap.launches = 0
+    got = ttb.block_imdct_batched(coefs, wc, lap, prev, TCFG)
+    off = ttb.block_imdct_batched(coefs, wc, lap, prev, TCodecConfig(rate_hz=44100, n_chan=C,
+                                                                      block_size=N,
+                                                                      use_pallas="off"))
+    assert ttb.imdct_lap.launches == 0
+    for g, w in zip(got, off):
+        assert torch.equal(g, w)
+    tables = ttb.lap_tables(N, torch.device("cpu"))
+    t = ttb.device_tables(N, torch.device("cpu"))
+    assert tables.dtype == torch.int32 and tables.numel() == 4 * 16 * 15 + 16 + 16 + 15
+    parts = torch.split(tables, [t[k].numel() for k in ttb.LAP_TABLE_PARTS])
+    for k, part in zip(ttb.LAP_TABLE_PARTS, parts):
+        assert torch.equal(part, t[k].reshape(-1).to(torch.int32)), k
+    assert ttb.lap_geometry(b, C, N) == {"threads": 256, "tile": N + N // 2}
+    with pytest.raises(ValueError):
+        ttb.lap_geometry(0, C, N)
 
 
 @pytest.mark.parametrize("c", [1, 2, 3, 5])

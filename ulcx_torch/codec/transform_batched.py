@@ -9,6 +9,10 @@ class each stream's pattern uses; the inverse synthesizes every
 candidate and accumulates each under its activity mask. Data-dependent
 selects (the lap reshuffle, the last subblock's shift) are index
 gathers.
+
+The inverse's windowing and lap (``imdct_lap_plain``, some 300 tensor
+ops) run on the card as one hand-written kernel (``imdct_lap``,
+``csrc/imdct_lap.cu``), which computes the same sums in the same order.
 """
 
 from __future__ import annotations
@@ -18,6 +22,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ulcx_torch._build import check as _check
+from ulcx_torch._build import launch as _launch
+from ulcx_torch._build import on_cpu as _on_cpu
 from ulcx_torch.ops.dct import dct4_dst4
 from ulcx_torch.ops.mdct import imdct_expand, imdct_halfspec, mdct_fold, mdst_fold, rise_window
 from ulcx_torch.ops.patterns import (
@@ -112,7 +119,11 @@ def boundary_overlaps_batched(window_ctrl, prev_last_ss, next_overlap, cfg: Code
     """Per-candidate (o_left, o_right) [B, 15] int32: the overlap
     nominal and clamping rules of reference ulcDecoder.c:233-239 /
     ulcEncoder_BlockTransform.c:161-172 for all candidates at once."""
-    n = cfg.block_size
+    return _overlaps(window_ctrl, prev_last_ss, next_overlap, cfg.block_size)
+
+
+def _overlaps(window_ctrl, prev_last_ss, next_overlap, n: int):
+    """``boundary_overlaps_batched`` at block size ``n``."""
     t = device_tables(n, window_ctrl.device)
     pat = (window_ctrl >> 4).long()
     scale = (window_ctrl & 0x7)[:, None]
@@ -195,69 +206,159 @@ def block_imdct_batched(coefs, window_ctrl, lap, prev_last_ss, cfg: CodecConfig)
     """Batched inverse: coefs [B, C, N], window_ctrl [B], lap [B, C, N/2],
     prev_last_ss [B] -> (pcm [B, C, N], new_lap [B, C, N/2], last_ss [B]).
 
-    Every candidate of a class is synthesized and windowed at once; the
-    candidates' halves are added into the output in candidate order, as
-    ulcx adds them (each under its activity mask)."""
+    Every candidate of a class is synthesized by one DCT-IV product per
+    class; ``imdct_lap`` (with ``use_pallas="off"`` its plain version)
+    windows them and adds them into the output and the lap."""
     with span("ulcx.decode.imdct"):
         n = cfg.block_size
-        h = n // 2
         b, c, _ = coefs.shape
-        dev = coefs.device
-        t = device_tables(n, dev)
-        pat = (window_ctrl >> 4).long()
-        act = t["act"][pat] == 1  # [B, 15]
-        o_l, _ = boundary_overlaps_batched(window_ctrl, prev_last_ss, torch.full_like(window_ctrl, n), cfg)
-        j = torch.arange(n, device=dev)
-        ext = torch.zeros((b, c, n + h), dtype=torch.float32, device=dev)
+        v = [imdct_halfspec(coefs.reshape(b, c, 1 << cls, n >> cls),
+                            cfg.transform_for(n >> cls)).reshape(b, c, n).contiguous()
+             for cls in range(N_CLASSES)]
+        lap_fn = imdct_lap_plain if cfg.use_pallas == "off" else imdct_lap
+        return lap_fn(v, window_ctrl.contiguous(), lap.contiguous(), prev_last_ss.contiguous())
 
-        # the previous block's deferred-window contribution: around
-        # fs = h - prev_last_ss/2 the lap reads as identity prefix, reversed
-        # middle, shifted tail, then zeros; nothing when prev_last_ss is no
-        # subblock size (0 at a stream's start)
-        fs = (h - prev_last_ss // 2).long()[:, None]  # [B, 1]
-        src = torch.where(j < fs, j, torch.where(j < h, h - 1 - j + fs, j - h + fs))
-        known = (prev_last_ss[:, None] == (n >> t["c_shift"])).any(dim=-1)[:, None]
-        live = known & (j < n - fs)
-        pc = torch.gather(lap, -1, torch.where(live, src, 0)[:, None].expand(b, c, n))
-        first_ol = o_l.gather(1, t["first"][pat][:, None])[:, 0]
-        w_prev = rise_window(n, first_ol).flip(-1)  # [B, N]
-        ext[..., :n] += torch.where(live[:, None], pc, 0.0) * w_prev[:, None]
 
-        last_k = t["last"][pat]  # [B]
-        last_ss = (n >> t["c_shift"][last_k]).to(torch.int32)
-        is_last = last_k[:, None] == torch.arange(act.shape[1], device=dev)  # [B, 15]
-        o_r = torch.clamp(o_l.gather(1, t["next"][pat]), max=(n >> t["c_shift"]))  # [B, 15]
+def imdct_lap_plain(v, window_ctrl, lap, prev_last_ss):
+    """Windowing and lap of the inverse transform, in plain tensor code on
+    whatever device its inputs lie: v, the four classes' half-spectra
+    [B, C, N] (class c's 2^c candidates of N/2^c values back to back),
+    window_ctrl [B], lap [B, C, N/2], prev_last_ss [B] -> (pcm [B, C, N],
+    new_lap [B, C, N/2], last_ss [B]).
 
-        v_last = torch.zeros((b, c, h), dtype=torch.float32, device=dev)
-        k = 0
-        for cls in range(N_CLASSES):
-            ss = n >> cls
-            npos = 1 << cls
-            cand = slice(k, k + npos)
-            v = imdct_halfspec(coefs.reshape(b, c, npos, ss), cfg.transform_for(ss))
-            wl = rise_window(ss, o_l[:, cand])  # [B, npos, ss]
-            wr = rise_window(ss, o_r[:, cand]).flip(-1)
-            w = torch.cat([wl, torch.where(is_last[:, cand, None], 0.0, wr)], dim=-1)
-            w = torch.where(act[:, cand, None], w, 0.0)
-            y = imdct_expand(v) * w[:, None]  # [B, C, npos, 2ss]
-            # frame i starts at h - ss/2 + i*ss: its first half meets frame
-            # i-1's second half; the end-of-block frame's second half waits
-            # in the lap (v_last)
-            a = h - ss // 2
-            if npos > 1:
-                ext[..., a + ss : a + npos * ss] += y[..., :-1, ss:].reshape(b, c, -1)
-            ext[..., a : a + npos * ss] += y[..., :ss].reshape(b, c, -1)
-            here = is_last[:, cand]  # [B, npos]
-            pick = here.long().argmax(dim=1)[:, None, None, None].expand(b, c, 1, ss // 2)
-            vi = torch.gather(v[..., : ss // 2], 2, pick)[:, :, 0]
-            v_last = torch.where(here.any(dim=1)[:, None, None],
-                                 torch.nn.functional.pad(vi, (0, h - ss // 2)), v_last)
-            k += npos
+    Every candidate of a class is windowed at once; the candidates'
+    halves are added into the output in candidate order, as ulcx adds
+    them (each under its activity mask)."""
+    b, c, n = v[0].shape
+    h = n // 2
+    dev = lap.device
+    t = device_tables(n, dev)
+    pat = (window_ctrl >> 4).long()
+    act = t["act"][pat] == 1  # [B, 15]
+    o_l, _ = _overlaps(window_ctrl, prev_last_ss, torch.full_like(window_ctrl, n), n)
+    j = torch.arange(n, device=dev)
+    ext = torch.zeros((b, c, n + h), dtype=torch.float32, device=dev)
 
-        # new lap: the spill left of f_new = h - last_ss/2, then v_last
-        # shifted right by f_new
-        jh = j[:h]
-        f_new = (h - last_ss // 2).long()[:, None]
-        shifted = torch.gather(v_last, -1, (jh - f_new).clamp(min=0)[:, None].expand(b, c, h))
-        new_lap = torch.where((jh < f_new)[:, None], ext[..., n : n + h], shifted)
-        return ext[..., :n], new_lap, last_ss
+    # the previous block's deferred-window contribution: around
+    # fs = h - prev_last_ss/2 the lap reads as identity prefix, reversed
+    # middle, shifted tail, then zeros; nothing when prev_last_ss is no
+    # subblock size (0 at a stream's start)
+    fs = (h - prev_last_ss // 2).long()[:, None]  # [B, 1]
+    src = torch.where(j < fs, j, torch.where(j < h, h - 1 - j + fs, j - h + fs))
+    known = (prev_last_ss[:, None] == (n >> t["c_shift"])).any(dim=-1)[:, None]
+    live = known & (j < n - fs)
+    pc = torch.gather(lap, -1, torch.where(live, src, 0)[:, None].expand(b, c, n))
+    first_ol = o_l.gather(1, t["first"][pat][:, None])[:, 0]
+    w_prev = rise_window(n, first_ol).flip(-1)  # [B, N]
+    ext[..., :n] += torch.where(live[:, None], pc, 0.0) * w_prev[:, None]
+
+    last_k = t["last"][pat]  # [B]
+    last_ss = (n >> t["c_shift"][last_k]).to(torch.int32)
+    is_last = last_k[:, None] == torch.arange(act.shape[1], device=dev)  # [B, 15]
+    o_r = torch.clamp(o_l.gather(1, t["next"][pat]), max=(n >> t["c_shift"]))  # [B, 15]
+
+    v_last = torch.zeros((b, c, h), dtype=torch.float32, device=dev)
+    k = 0
+    for cls in range(N_CLASSES):
+        ss = n >> cls
+        npos = 1 << cls
+        cand = slice(k, k + npos)
+        vc = v[cls].reshape(b, c, npos, ss)
+        wl = rise_window(ss, o_l[:, cand])  # [B, npos, ss]
+        wr = rise_window(ss, o_r[:, cand]).flip(-1)
+        w = torch.cat([wl, torch.where(is_last[:, cand, None], 0.0, wr)], dim=-1)
+        w = torch.where(act[:, cand, None], w, 0.0)
+        y = imdct_expand(vc) * w[:, None]  # [B, C, npos, 2ss]
+        # frame i starts at h - ss/2 + i*ss: its first half meets frame
+        # i-1's second half; the end-of-block frame's second half waits
+        # in the lap (v_last)
+        a = h - ss // 2
+        if npos > 1:
+            ext[..., a + ss : a + npos * ss] += y[..., :-1, ss:].reshape(b, c, -1)
+        ext[..., a : a + npos * ss] += y[..., :ss].reshape(b, c, -1)
+        here = is_last[:, cand]  # [B, npos]
+        pick = here.long().argmax(dim=1)[:, None, None, None].expand(b, c, 1, ss // 2)
+        vi = torch.gather(vc[..., : ss // 2], 2, pick)[:, :, 0]
+        v_last = torch.where(here.any(dim=1)[:, None, None],
+                             torch.nn.functional.pad(vi, (0, h - ss // 2)), v_last)
+        k += npos
+
+    # new lap: the spill left of f_new = h - last_ss/2, then v_last
+    # shifted right by f_new
+    jh = j[:h]
+    f_new = (h - last_ss // 2).long()[:, None]
+    shifted = torch.gather(v_last, -1, (jh - f_new).clamp(min=0)[:, None].expand(b, c, h))
+    new_lap = torch.where((jh < f_new)[:, None], ext[..., n : n + h], shifted)
+    return ext[..., :n], new_lap, last_ss
+
+
+# Launch geometry of the window-and-lap kernel (csrc/imdct_lap.cu): a CTA
+# of LAP_THREADS threads takes LAP_TILE outputs of one row (stream,
+# channel), whose N PCM samples come first and its N/2 lap values after.
+LAP_THREADS = 256
+LAP_TILE = 3072
+# the packed tables' parts, in the kernel's order (kAct .. kCShift)
+LAP_TABLE_PARTS = ("act", "l_flag", "l_prev", "next", "first", "last", "c_shift")
+
+
+def lap_geometry(b: int, c: int, n: int) -> dict:
+    """The kernel's launch at B = b, C = c, N = n: threads and outputs
+    (``tile``) a CTA; the grid is a CTA a tile of each of the B C rows."""
+    if b < 1 or c < 1:
+        raise ValueError(f"empty batch: B={b}, C={c}")
+    if n < 16 or n & (n - 1):
+        raise ValueError(f"block size {n} (a power of two from 16)")
+    return {"threads": LAP_THREADS, "tile": min(n + n // 2, LAP_TILE)}
+
+
+@lru_cache(maxsize=8)
+def lap_tables(block_size: int, device: torch.device) -> torch.Tensor:
+    """``device_tables``' parts that the kernel reads (``LAP_TABLE_PARTS``),
+    flattened into one int32 tensor on ``device``."""
+    with span("ulcx.build.lap_tables"):
+        t = device_tables(block_size, torch.device("cpu"))
+        return torch.cat([t[k].reshape(-1).to(torch.int32) for k in LAP_TABLE_PARTS]).to(device)
+
+
+@lru_cache(maxsize=8)
+def lap_windows(block_size: int, device: torch.device) -> torch.Tensor:
+    """The sine of every even power-of-two overlap o = 2, 4, ..., N,
+    back to back (o's at offset o - 2; 2 N - 2 floats): ``rise_window(o,
+    o)``, on ``device``, whose values are those that the plain version's
+    windows of overlap o take there over their transition."""
+    with span("ulcx.build.lap_windows"):
+        return torch.cat([rise_window(1 << e, torch.tensor([1 << e], device=device))[0]
+                          for e in range(1, block_size.bit_length())])
+
+
+def imdct_lap(v, window_ctrl, lap, prev_last_ss):
+    """Windowing and lap of the inverse transform in one kernel
+    (``csrc/imdct_lap.cu``; it replaces no TPU kernel but fuses what
+    ``imdct_lap_plain`` computes in some 300 tensor ops) -> (pcm, new_lap,
+    last_ss); see ``imdct_lap_plain``. On CPU tensors it runs the plain
+    version; on CUDA tensors it checks its arguments and launches the
+    kernel, adding one to ``imdct_lap.launches``."""
+    if _on_cpu(*v, window_ctrl, lap, prev_last_ss):
+        return imdct_lap_plain(v, window_ctrl, lap, prev_last_ss)
+    if len(v) != N_CLASSES:
+        raise ValueError(f"{len(v)} half-spectra, expected {N_CLASSES}")
+    b, c, n = v[0].shape
+    g = lap_geometry(b, c, n)
+    for cls, x in enumerate(v):
+        _check(f"v[{cls}]", x, torch.float32, (b, c, n))
+    _check("window_ctrl", window_ctrl, torch.int32, (b,))
+    _check("lap", lap, torch.float32, (b, c, n // 2))
+    _check("prev_last_ss", prev_last_ss, torch.int32, (b,))
+    dev = lap.device
+    tables, win = lap_tables(n, dev), lap_windows(n, dev)
+    pcm = torch.empty((b, c, n), dtype=torch.float32, device=dev)
+    new_lap = torch.empty((b, c, n // 2), dtype=torch.float32, device=dev)
+    last_ss = torch.empty((b,), dtype=torch.int32, device=dev)
+    _launch("ulcx_imdct_lap",
+            (*v, lap, window_ctrl, prev_last_ss, tables, win, pcm, new_lap, last_ss),
+            (b, c, n, g["tile"], g["threads"], tables.numel(), win.numel()), dev)
+    imdct_lap.launches += 1
+    return pcm, new_lap, last_ss
+
+
+imdct_lap.launches = 0
