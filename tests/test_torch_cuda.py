@@ -22,9 +22,9 @@ import torch
 
 from bench import make_corpus
 from chip_smoke import (
-    FLAT_BLOCK_BITS, FLAT_N_NZ_SHARE, FLAT_SIZE_REL, LAP_TOL, all_coef_window, flat_n_nz_differs,
-    imdct_lap_gap, imdct_lap_inputs, pack_streams, refuse_other_geometry, stream_seeds,
-    synthetic_flags,
+    FLAT_BLOCK_BITS, FLAT_N_NZ_SHARE, FLAT_SIZE_REL, IMDCT_TOL, PCM_RMS, all_coef_window,
+    flat_n_nz_differs, imdct_gap, imdct_inputs, pack_streams, refuse_other_geometry,
+    stream_seeds, synthetic_flags,
 )
 from ulcx_torch import _build
 from ulcx_torch.analysis.batched import analyze_block_batched
@@ -40,6 +40,7 @@ from ulcx_torch.codec.encoder import (
 from ulcx_torch.ops import dct
 from ulcx_torch.parallel.mesh import batch_decode, batch_encode
 from ulcx_torch.utils.config import CodecConfig
+from test_torch_imdct import dct4_plane, pattern_classes
 
 pytestmark = pytest.mark.cuda
 
@@ -261,70 +262,87 @@ def test_decode_path_on_card_matches_cpu(dev):
 @pytest.mark.parametrize("c", [1, 2, 3])
 @pytest.mark.parametrize("n", [256, 2048, 32768])
 def test_imdct_lap_kernel_matches_plain(dev, n, c):
-    """The window-and-lap kernel against its plain version: PCM and lap
-    within LAP_TOL of each row's peak (the share bit-equal printed;
-    equal wherever the kernel's sinf is torch.sin's), last_ss exact, one
-    launch a call."""
+    """The inverse transform's kernel against its plain version on the
+    card (the class GEMMs, then imdct_lap_plain): PCM and lap within
+    IMDCT_TOL of each row's peak (the FFT's rounding is not the GEMM's),
+    last_ss exact, one launch a call. Against imdct_lap_plain of the
+    numpy transcription's plane (``test_torch_imdct.dct4_plane``), the
+    same float32 operations in the same order: within 1e-6 (the share
+    bit-equal printed; equal wherever the kernel's sinf is torch.sin's)."""
+    transform_for = CodecConfig().transform_for
     for b in (640, 13, 1):
-        args = imdct_lap_inputs(b, c, n, dev, seed=n + 7 * b + c)
-        before = tb.imdct_lap.launches
-        got = tb.imdct_lap(*args)
+        coefs, wc, lap, prev = args = imdct_inputs(b, c, n, dev, seed=n + 7 * b + c)
+        before = tb.imdct.launches
+        got = tb.imdct(*args)
         torch.cuda.synchronize()
-        assert tb.imdct_lap.launches == before + 1
-        want = tb.imdct_lap_plain(*args)
+        assert tb.imdct.launches == before + 1
+        want = tb.imdct_plain(*args, transform_for)
         assert [tuple(x.shape) for x in got] == [tuple(x.shape) for x in want]
-        gap, same, last_ok = imdct_lap_gap(got, want)
-        print(f"N={n} C={c} B={b}: {gap:.2e} of the row's peak, {same:.6f} of the values "
-              "bit-equal")
-        assert gap <= LAP_TOL and last_ok
+        gap, _, last_ok = imdct_gap(got, want)
+        line = f"N={n} C={c} B={b}: {gap:.2e} of the row's peak from the GEMM path"
+        assert gap <= IMDCT_TOL and last_ok, line
+        if b * c * n <= 1 << 22:
+            x = coefs.reshape(b * c, n).cpu().numpy()
+            classes = np.repeat(pattern_classes(wc.cpu().numpy(), n), c, axis=0)
+            plane = torch.from_numpy(dct4_plane(x, classes)).reshape(b, c, n).to(dev)
+            exact = tb.imdct_lap_plain([plane] * 4, wc, lap, prev)
+            gap_t, same, last_ok = imdct_gap(got, exact)
+            line += f"; {gap_t:.2e} from the transcription, {same:.6f} of the values bit-equal"
+            assert gap_t <= 1e-6 and last_ok, line
+        print(line)
 
 
 def test_imdct_lap_refuses_mixed_devices_types_and_geometry(dev):
-    v, wc, lap, prev = imdct_lap_inputs(4, 2, N, dev, seed=5)
+    coefs, wc, lap, prev = imdct_inputs(4, 2, N, dev, seed=5)
     with pytest.raises(ValueError, match="several devices"):
-        tb.imdct_lap(v, wc.cpu(), lap, prev)
+        tb.imdct(coefs, wc.cpu(), lap, prev)
     with pytest.raises(TypeError):
-        tb.imdct_lap(v, wc.long(), lap, prev)
+        tb.imdct(coefs, wc.long(), lap, prev)
     with pytest.raises(TypeError):
-        tb.imdct_lap([x.double() for x in v], wc, lap, prev)
+        tb.imdct(coefs.double(), wc, lap, prev)
     with pytest.raises(ValueError, match="contiguous"):
-        tb.imdct_lap(v, wc, lap.transpose(0, 1).contiguous().transpose(0, 1), prev)
+        tb.imdct(coefs, wc, lap.transpose(0, 1).contiguous().transpose(0, 1), prev)
     with pytest.raises(ValueError, match="shape"):
-        tb.imdct_lap(v, wc, lap[:, :, :-1].contiguous(), prev)
+        tb.imdct(coefs, wc, lap[:, :, :-1].contiguous(), prev)
+    with pytest.raises(ValueError, match="block size"):
+        tb.imdct(coefs[..., :192].contiguous(), wc, lap[..., :96].contiguous(), prev)
     # the entry point refuses a geometry other than its own, launching nothing
     lib = _build.library()
-    g = tb.lap_geometry(4, 2, N)
-    tables, win = tb.lap_tables(N, dev), tb.lap_windows(N, dev)
-    ptrs = (*v, lap, wc, prev, tables, win, torch.empty_like(v[0]), torch.empty_like(lap),
+    g = tb.imdct_geometry(4, 2, N)
+    tables, win, tw = tb.lap_tables(N, dev), tb.lap_windows(N, dev), tb.dct4_twiddles(N, dev)
+    ptrs = (coefs, lap, wc, prev, tables, win, tw, torch.empty_like(coefs), torch.empty_like(lap),
             torch.empty_like(wc))
-    for ints in ((g["tile"], g["threads"] // 2, tables.numel(), win.numel()),
-                 (g["tile"], g["threads"], tables.numel() - 1, win.numel()),
-                 (g["tile"], g["threads"], tables.numel(), win.numel() - 1)):
-        rc = lib.ulcx_imdct_lap(*(x.data_ptr() for x in ptrs), 4, 2, N, *ints,
-                                torch.cuda.current_stream().cuda_stream)
+    good = (g["threads"], tables.numel(), win.numel(), tw.shape[0], g["shared"])
+    for k, delta in ((0, -128), (1, -1), (2, -1), (3, -1), (4, -16)):
+        ints = list(good)
+        ints[k] += delta
+        rc = lib.ulcx_imdct(*(x.data_ptr() for x in ptrs), 4, 2, N, *ints,
+                            torch.cuda.current_stream().cuda_stream)
         assert rc == 1
 
 
 def test_imdct_lap_on_the_decode_paths(dev):
     """One launch a block_imdct_batched call on the card: a block in
     batch_decode, two a call of decode_stream_pipelined; none with
-    use_pallas="off", whose PCM is the kernel path's."""
+    use_pallas="off", whose PCM is within PCM_RMS of the kernel path's
+    (the plain path's GEMMs round otherwise than the kernel's FFT)."""
     t = 3
     streams, win, _ = _streams(make_corpus(8, t, N), CFG)
-    tb.imdct_lap.launches = 0
+    tb.imdct.launches = 0
     pcm, bits, corrupt = batch_decode(streams, t, win, CFG, device=dev)
     torch.cuda.synchronize()
-    assert tb.imdct_lap.launches == t
-    tb.imdct_lap.launches = 0
+    assert tb.imdct.launches == t
+    tb.imdct.launches = 0
     decode_stream_pipelined(streams[0], t, win, CFG)
     torch.cuda.synchronize()
-    assert tb.imdct_lap.launches == 2
-    tb.imdct_lap.launches = 0
+    assert tb.imdct.launches == 2
+    tb.imdct.launches = 0
     off = dataclasses.replace(CFG, use_pallas="off")
     got = batch_decode(streams, t, win, off, device=dev)
     torch.cuda.synchronize()
-    assert tb.imdct_lap.launches == 0
-    assert all(torch.equal(a, b_) for a, b_ in zip(got, (pcm, bits, corrupt)))
+    assert tb.imdct.launches == 0
+    assert torch.equal(got[1], bits) and torch.equal(got[2], corrupt)
+    assert float(torch.sqrt(torch.mean((got[0] - pcm) ** 2))) <= PCM_RMS
 
 
 @pytest.mark.parametrize("n", [4096, 8192])
@@ -464,14 +482,16 @@ def test_rate_paths_on_card(dev):
         off = dataclasses.replace(cfg, use_pallas="off")
         ek.reset_launch_counts()
         dk.reset_launch_counts()
-        tb.imdct_lap.launches = 0
+        tb.imdct.launches = 0
         got, _ = batch_encode(x, off, "cbr", rate_kbps=128.0, device=dev)
         got_dec = batch_decode(streams, t, win, off, device=dev)
         torch.cuda.synchronize()
         assert not any({**ek.launch_counts(), **dk.launch_counts(),
-                        "imdct_lap": tb.imdct_lap.launches}.values())
+                        "imdct": tb.imdct.launches}.values())
         assert torch.equal(got.data, ref.data) and torch.equal(got.size_bits, ref.size_bits)
-        assert all(torch.equal(a, b_) for a, b_ in zip(got_dec, dec))
+        # bits and corrupt flags exact; PCM through the plain path's GEMMs, not the kernel's FFT
+        assert torch.equal(got_dec[1], dec[1]) and torch.equal(got_dec[2], dec[2])
+        assert float(torch.sqrt(torch.mean((got_dec[0] - dec[0]) ** 2))) <= PCM_RMS
 
 
 def test_pipelined_decoder_on_card(dev):

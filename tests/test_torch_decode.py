@@ -130,32 +130,35 @@ def test_block_imdct_batched_matches(n):
 
 
 def test_imdct_lap_runs_plain_on_cpu():
-    """On CPU tensors the window-and-lap wrapper runs its plain version
-    and launches nothing, whatever use_pallas says; its table holds the
-    parts the kernel reads, in its order."""
+    """On CPU tensors the inverse transform's wrapper runs its plain
+    version and launches nothing, whatever use_pallas says; the plain
+    version is the class GEMMs and ``imdct_lap_plain``; the kernel's table
+    holds the parts it reads, in its order."""
     rng = np.random.default_rng(7)
     b = 16
     wc = torch.from_numpy((np.arange(b) << 4 | rng.integers(0, 8, b)).astype(np.int32))
     prev = torch.from_numpy(rng.choice([0, N, N // 2, N // 4, N // 8], b).astype(np.int32))
     coefs = torch.from_numpy(rng.standard_normal((b, C, N)).astype(np.float32))
     lap = torch.from_numpy(rng.standard_normal((b, C, N // 2)).astype(np.float32))
-    ttb.imdct_lap.launches = 0
+    ttb.imdct.launches = 0
     got = ttb.block_imdct_batched(coefs, wc, lap, prev, TCFG)
     off = ttb.block_imdct_batched(coefs, wc, lap, prev, TCodecConfig(rate_hz=44100, n_chan=C,
                                                                       block_size=N,
                                                                       use_pallas="off"))
-    assert ttb.imdct_lap.launches == 0
-    for g, w in zip(got, off):
-        assert torch.equal(g, w)
+    wrapped = ttb.imdct(coefs, wc, lap, prev)
+    assert ttb.imdct.launches == 0
+    plain = ttb.imdct_lap_plain(ttb.class_halfspecs(coefs, TCFG.transform_for), wc, lap, prev)
+    for g, w, x, y in zip(got, off, wrapped, plain):
+        assert torch.equal(g, w) and torch.equal(g, x) and torch.equal(g, y)
     tables = ttb.lap_tables(N, torch.device("cpu"))
     t = ttb.device_tables(N, torch.device("cpu"))
     assert tables.dtype == torch.int32 and tables.numel() == 4 * 16 * 15 + 16 + 16 + 15
     parts = torch.split(tables, [t[k].numel() for k in ttb.LAP_TABLE_PARTS])
     for k, part in zip(ttb.LAP_TABLE_PARTS, parts):
         assert torch.equal(part, t[k].reshape(-1).to(torch.int32)), k
-    assert ttb.lap_geometry(b, C, N) == {"threads": 256, "tile": N + N // 2}
+    assert ttb.imdct_geometry(b, C, N) == {"threads": 256, "shared": 8 * (N // 2 + N // 64) + 2 * N}
     with pytest.raises(ValueError):
-        ttb.lap_geometry(0, C, N)
+        ttb.imdct_geometry(0, C, N)
 
 
 @pytest.mark.parametrize("c", [1, 2, 3, 5])

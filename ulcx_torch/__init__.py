@@ -14,8 +14,8 @@ CUDA C++ kernels (``csrc/encode_walks.cu``). ``parallel.mesh.batch_decode``
 ``bitstream.fast_decode.decode_block_fast`` (FSM kernel, which places
 each record's expansion word, then the RNG-expand kernel;
 ``csrc/decode_walks.cu``) -> ``codec.transform_batched.block_imdct_batched``
-(one DCT-IV product per subblock class, then the window-and-lap kernel,
-``csrc/imdct_lap.cu``) -> inverse M/S. ``codec.encoder.encode_stream`` / ``encode_block`` and
+(one kernel, ``csrc/imdct.cu``: each row's active subblocks by a fast
+DCT-IV, then their windows and lap) -> inverse M/S. ``codec.encoder.encode_stream`` / ``encode_block`` and
 ``codec.decoder.decode_stream`` / ``decode_block`` code one stream as a
 batch of one; ``codec.decoder.decode_stream_pipelined`` decodes it with
 only the state machine serial (``ops.rngjump`` gives every block its RNG

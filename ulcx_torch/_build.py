@@ -1,10 +1,10 @@
 """Build, load and launch the port's CUDA kernels.
 
 ``csrc/encode_walks.cu``, ``csrc/decode_walks.cu`` and
-``csrc/imdct_lap.cu`` have a plain C interface, so one ``nvcc`` call
+``csrc/imdct.cu`` have a plain C interface, so one ``nvcc`` call
 compiles them into one shared library, loaded with ctypes: no PyTorch
 headers, a build of seconds. The two walk files include
-``csrc/walk_ring.cuh``. The library goes to ``build/ulcx_torch/`` beside
+``csrc/walk_ring.cuh``, the inverse transform ``csrc/dct4.cuh``. The library goes to ``build/ulcx_torch/`` beside
 the package, named by a hash of every file under ``csrc/`` and the
 flags, so a changed source or header is rebuilt at its first use and an
 unchanged one is loaded as it is. Nothing is built when the module is
@@ -29,7 +29,7 @@ from pathlib import Path
 from ulcx_torch.utils.profiling import span
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "encode_walks.cu", _CSRC / "decode_walks.cu", _CSRC / "imdct_lap.cu")
+SOURCES = (_CSRC / "encode_walks.cu", _CSRC / "decode_walks.cu", _CSRC / "imdct.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "ulcx_torch"
 # No --use_fast_math: the walks need the accurate logf and sqrtf, with
 # denormals kept, and the inverse transform's windows the sinf that
@@ -50,7 +50,7 @@ _SIGNATURES = {
     "ulcx_fsm_place": (7, 8),
     "ulcx_rng_expand": (4, 6),
     "ulcx_rng": (4, 6),
-    "ulcx_imdct_lap": (12, 7),
+    "ulcx_imdct": (10, 8),
 }
 
 

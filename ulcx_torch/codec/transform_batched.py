@@ -5,14 +5,16 @@ N/4, N/8 at fixed offsets: 15 candidate subblocks in all. Every
 candidate of every class is transformed for the whole batch (one
 matrix product per class), with per-candidate boundary overlaps from
 static tables. The forward transform then takes, per coefficient, the
-class each stream's pattern uses; the inverse synthesizes every
-candidate and accumulates each under its activity mask. Data-dependent
-selects (the lap reshuffle, the last subblock's shift) are index
-gathers.
+class each stream's pattern uses; the plain inverse (``imdct_plain``)
+synthesizes every candidate and accumulates each under its activity
+mask. Data-dependent selects (the lap reshuffle, the last subblock's
+shift) are index gathers.
 
-The inverse's windowing and lap (``imdct_lap_plain``, some 300 tensor
-ops) run on the card as one hand-written kernel (``imdct_lap``,
-``csrc/imdct_lap.cu``), which computes the same sums in the same order.
+On the card the inverse is one hand-written kernel (``imdct``,
+``csrc/imdct.cu``): per row it synthesizes only the active subblocks of
+its pattern, each by a fast DCT-IV (an FFT of half its length,
+``csrc/dct4.cuh``), and windows and laps them with the plain version's
+sums in the plain version's order.
 """
 
 from __future__ import annotations
@@ -206,17 +208,33 @@ def block_imdct_batched(coefs, window_ctrl, lap, prev_last_ss, cfg: CodecConfig)
     """Batched inverse: coefs [B, C, N], window_ctrl [B], lap [B, C, N/2],
     prev_last_ss [B] -> (pcm [B, C, N], new_lap [B, C, N/2], last_ss [B]).
 
-    Every candidate of a class is synthesized by one DCT-IV product per
-    class; ``imdct_lap`` (with ``use_pallas="off"`` its plain version)
-    windows them and adds them into the output and the lap."""
+    On the card one kernel (``imdct``) synthesises each row's active
+    subblocks by a fast DCT-IV and windows and laps them. On the CPU, and
+    with ``use_pallas="off"``, the plain version (``imdct_plain``): every
+    candidate of a class through one DCT-IV product per class, then
+    ``imdct_lap_plain``."""
     with span("ulcx.decode.imdct"):
-        n = cfg.block_size
-        b, c, _ = coefs.shape
-        v = [imdct_halfspec(coefs.reshape(b, c, 1 << cls, n >> cls),
-                            cfg.transform_for(n >> cls)).reshape(b, c, n).contiguous()
-             for cls in range(N_CLASSES)]
-        lap_fn = imdct_lap_plain if cfg.use_pallas == "off" else imdct_lap
-        return lap_fn(v, window_ctrl.contiguous(), lap.contiguous(), prev_last_ss.contiguous())
+        args = (coefs.contiguous(), window_ctrl.contiguous(), lap.contiguous(),
+                prev_last_ss.contiguous())
+        if cfg.use_pallas == "off" or _on_cpu(*args):
+            return imdct_plain(*args, cfg.transform_for)
+        return imdct(*args)
+
+
+def class_halfspecs(coefs, transform_for):
+    """The four classes' half-spectra of every candidate, [B, C, N] each
+    (class c's 2^c candidates of N/2^c values back to back), through one
+    DCT-IV product a class with backend ``transform_for(size)``."""
+    b, c, n = coefs.shape
+    return [imdct_halfspec(coefs.reshape(b, c, 1 << cls, n >> cls),
+                           transform_for(n >> cls)).reshape(b, c, n).contiguous()
+            for cls in range(N_CLASSES)]
+
+
+def imdct_plain(coefs, window_ctrl, lap, prev_last_ss, transform_for):
+    """The inverse transform in plain tensor code: ``class_halfspecs``,
+    then ``imdct_lap_plain``."""
+    return imdct_lap_plain(class_halfspecs(coefs, transform_for), window_ctrl, lap, prev_last_ss)
 
 
 def imdct_lap_plain(v, window_ctrl, lap, prev_last_ss):
@@ -292,23 +310,28 @@ def imdct_lap_plain(v, window_ctrl, lap, prev_last_ss):
     return ext[..., :n], new_lap, last_ss
 
 
-# Launch geometry of the window-and-lap kernel (csrc/imdct_lap.cu): a CTA
-# of LAP_THREADS threads takes LAP_TILE outputs of one row (stream,
-# channel), whose N PCM samples come first and its N/2 lap values after.
-LAP_THREADS = 256
-LAP_TILE = 3072
+# Launch geometry of the inverse transform's kernel (csrc/imdct.cu): a CTA
+# a row (stream, channel), IMDCT_THREADS threads up to IMDCT_SMALL_MAX_N,
+# IMDCT_LARGE_THREADS above.
+IMDCT_THREADS = 256
+IMDCT_LARGE_THREADS = 1024
+IMDCT_SMALL_MAX_N = 4096
 # the packed tables' parts, in the kernel's order (kAct .. kCShift)
 LAP_TABLE_PARTS = ("act", "l_flag", "l_prev", "next", "first", "last", "c_shift")
 
 
-def lap_geometry(b: int, c: int, n: int) -> dict:
-    """The kernel's launch at B = b, C = c, N = n: threads and outputs
-    (``tile``) a CTA; the grid is a CTA a tile of each of the B C rows."""
+def imdct_geometry(b: int, c: int, n: int) -> dict:
+    """The kernel's launch at B = b, C = c, N = n: threads a CTA and its
+    dynamic shared memory, the row's N/2 complex half-spectrum values at
+    one float2 per 32 of padding (rounded up to 16 bytes) and its N/2 lap
+    floats; the grid is a CTA a row."""
     if b < 1 or c < 1:
         raise ValueError(f"empty batch: B={b}, C={c}")
-    if n < 16 or n & (n - 1):
-        raise ValueError(f"block size {n} (a power of two from 16)")
-    return {"threads": LAP_THREADS, "tile": min(n + n // 2, LAP_TILE)}
+    if n < 16 or n > 32768 or n & (n - 1):
+        raise ValueError(f"block size {n} (a power of two from 16 to 32768)")
+    spec = n // 2 + n // 64
+    return {"threads": IMDCT_THREADS if n <= IMDCT_SMALL_MAX_N else IMDCT_LARGE_THREADS,
+            "shared": 8 * (spec + spec % 2) + 4 * (n // 2)}
 
 
 @lru_cache(maxsize=8)
@@ -331,34 +354,57 @@ def lap_windows(block_size: int, device: torch.device) -> torch.Tensor:
                           for e in range(1, block_size.bit_length())])
 
 
-def imdct_lap(v, window_ctrl, lap, prev_last_ss):
-    """Windowing and lap of the inverse transform in one kernel
-    (``csrc/imdct_lap.cu``; it replaces no TPU kernel but fuses what
-    ``imdct_lap_plain`` computes in some 300 tensor ops) -> (pcm, new_lap,
-    last_ss); see ``imdct_lap_plain``. On CPU tensors it runs the plain
-    version; on CUDA tensors it checks its arguments and launches the
-    kernel, adding one to ``imdct_lap.launches``."""
-    if _on_cpu(*v, window_ctrl, lap, prev_last_ss):
-        return imdct_lap_plain(v, window_ctrl, lap, prev_last_ss)
-    if len(v) != N_CLASSES:
-        raise ValueError(f"{len(v)} half-spectra, expected {N_CLASSES}")
-    b, c, n = v[0].shape
-    g = lap_geometry(b, c, n)
-    for cls, x in enumerate(v):
-        _check(f"v[{cls}]", x, torch.float32, (b, c, n))
+@lru_cache(maxsize=8)
+def dct4_twiddle_table(block_size: int) -> np.ndarray:
+    """The fast DCT-IV's twiddles (``csrc/dct4.cuh``), computed in float64
+    and rounded to float32 pairs (re, im), [17 N / 8, 2]: W_{N/2}^k =
+    e^{-2 pi i k / (N/2)} for k < N/4, then for each class c (S = N >> c,
+    M = S/2) its pre-twiddles e^{-i pi m / S}, m < M, and post-twiddles
+    e^{-i pi (j + 1/4) / S}, j < M."""
+    n = block_size
+    k = np.arange(n // 4, dtype=np.float64)
+    parts = [np.exp(-4j * np.pi * k / n)]
+    for cls in range(N_CLASSES):
+        s = n >> cls
+        i = np.arange(s // 2, dtype=np.float64)
+        parts += [np.exp(-1j * np.pi * i / s), np.exp(-1j * np.pi * (i + 0.25) / s)]
+    t = np.concatenate(parts)
+    return np.stack([t.real, t.imag], -1).astype(np.float32)
+
+
+@lru_cache(maxsize=8)
+def dct4_twiddles(block_size: int, device: torch.device) -> torch.Tensor:
+    """``dct4_twiddle_table`` on ``device``."""
+    with span("ulcx.build.dct4_twiddles"):
+        return torch.from_numpy(dct4_twiddle_table(block_size)).to(device)
+
+
+def imdct(coefs, window_ctrl, lap, prev_last_ss):
+    """The inverse transform in one kernel (``csrc/imdct.cu``; it replaces
+    no TPU kernel, but what ``imdct_plain`` computes in four DCT-IV
+    products and some 300 tensor ops) -> (pcm, new_lap, last_ss); see
+    ``block_imdct_batched``. On CPU tensors it runs the plain version
+    with ``CodecConfig``'s default transforms; on CUDA tensors it checks
+    its arguments and launches the kernel, adding one to
+    ``imdct.launches``."""
+    if _on_cpu(coefs, window_ctrl, lap, prev_last_ss):
+        return imdct_plain(coefs, window_ctrl, lap, prev_last_ss, CodecConfig().transform_for)
+    b, c, n = coefs.shape
+    g = imdct_geometry(b, c, n)
+    _check("coefs", coefs, torch.float32, (b, c, n))
     _check("window_ctrl", window_ctrl, torch.int32, (b,))
     _check("lap", lap, torch.float32, (b, c, n // 2))
     _check("prev_last_ss", prev_last_ss, torch.int32, (b,))
     dev = lap.device
-    tables, win = lap_tables(n, dev), lap_windows(n, dev)
+    tables, win, tw = lap_tables(n, dev), lap_windows(n, dev), dct4_twiddles(n, dev)
     pcm = torch.empty((b, c, n), dtype=torch.float32, device=dev)
     new_lap = torch.empty((b, c, n // 2), dtype=torch.float32, device=dev)
     last_ss = torch.empty((b,), dtype=torch.int32, device=dev)
-    _launch("ulcx_imdct_lap",
-            (*v, lap, window_ctrl, prev_last_ss, tables, win, pcm, new_lap, last_ss),
-            (b, c, n, g["tile"], g["threads"], tables.numel(), win.numel()), dev)
-    imdct_lap.launches += 1
+    _launch("ulcx_imdct",
+            (coefs, lap, window_ctrl, prev_last_ss, tables, win, tw, pcm, new_lap, last_ss),
+            (b, c, n, g["threads"], tables.numel(), win.numel(), tw.shape[0], g["shared"]), dev)
+    imdct.launches += 1
     return pcm, new_lap, last_ss
 
 
-imdct_lap.launches = 0
+imdct.launches = 0

@@ -24,7 +24,8 @@ its children's, and spans nest in time as their names nest:
   ``.ms`` (M/S and the offset update);
 - ``ulcx.build.*``, on a cache miss only: ``library`` (the ``nvcc``
   build and the load), ``dct_matrices``, ``dct_fact_consts``,
-  ``device_tables``, ``lap_tables``, ``ema_consts``, ``prep_tables``.
+  ``device_tables``, ``lap_tables``, ``lap_windows``, ``dct4_twiddles``,
+  ``ema_consts``, ``prep_tables``.
 
 A kernel in the trace belongs to the innermost span open on its
 launching thread when its launch ran (the launch and the kernel share
