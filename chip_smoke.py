@@ -497,17 +497,17 @@ def main_path(cfg, x, device, stage_runs=None, per_block=PER_BLOCK, mesh=None):
     With a ``mesh`` (a world of one) the total is its float32 form."""
     import torch
 
-    from ulcx_torch.bitstream import encode_kernels as ek
+    from ulcx_torch._build import launch_counts, reset_launch_counts
     from ulcx_torch.parallel.mesh import batch_encode
 
     blocks = torch.from_numpy(x).to(device)
     b, t = blocks.shape[:2]
-    ek.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     out, stats = batch_encode(blocks, cfg, "cbr", rate_kbps=RATE_KBPS, mesh=mesh)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
-    counts = ek.launch_counts()
+    counts = launch_counts(*PER_BLOCK)
     if mesh is not None and not (stats["total_bits"].dtype == torch.float32 and torch.equal(
             stats["total_bits"], torch.sum(out.size_bits).to(torch.float32))):
         raise AssertionError(f"mesh total {stats['total_bits']} is not the float32 sum")
@@ -787,26 +787,20 @@ def decode_main_path(cfg, x, streams, win, sizes, device, mesh=None, min_snr=MIN
     bits, corrupt)); ``min_snr`` None checks no SNR floor."""
     import torch
 
-    from ulcx_torch.bitstream import decode_kernels as dk
-    from ulcx_torch.codec import transform_batched as tb
+    from ulcx_torch._build import launch_counts, reset_launch_counts
     from ulcx_torch.parallel.mesh import batch_decode
 
     b, t = sizes.shape
     s_dev = streams.to(device)
-    dk.reset_launch_counts()
-    tb.imdct.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     pcm, bits, corrupt = batch_decode(s_dev, t, win, cfg, mesh=mesh)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
-    counts = dk.launch_counts()
-    want = {k: t * v for k, v in DEC_PER_BLOCK.items()}
+    counts = launch_counts(*DEC_PER_BLOCK, "imdct")
+    want = {**{k: t * v for k, v in DEC_PER_BLOCK.items()}, "imdct": t * IMDCT_PER_BLOCK}
     if counts != want:
         raise AssertionError(f"decode launch counts {counts}, expected {want}")
-    if tb.imdct.launches != t * IMDCT_PER_BLOCK:
-        raise AssertionError(f"imdct launched {tb.imdct.launches} times, expected "
-                             f"{t * IMDCT_PER_BLOCK}")
-    counts["imdct"] = tb.imdct.launches
     if bool(corrupt.any()):
         raise AssertionError(f"{int(corrupt.sum())} blocks decode as corrupt")
     if not torch.equal(((bits + 7) // 8 * 8).cpu(), sizes):
@@ -983,6 +977,7 @@ def imdct_on_card(device, card):
     (gap, ms, plain ms, bytes)}."""
     import torch
 
+    from ulcx_torch._build import launch_counts, reset_launch_counts
     from ulcx_torch.codec import transform_batched as tb
     from ulcx_torch.utils.config import CodecConfig
 
@@ -990,13 +985,14 @@ def imdct_on_card(device, card):
     out = {}
     for b, c, n in IMDCT_SHAPES:
         for long_blocks in (False, True):
-            args = imdct_inputs(b, c, n, device, seed=b + n, long_blocks=long_blocks)
-            tb.imdct.launches = 0
+            args = (*imdct_inputs(b, c, n, device, seed=b + n, long_blocks=long_blocks),
+                    transform_for)
+            reset_launch_counts()
             got = tb.imdct(*args)
             torch.cuda.synchronize()
-            if tb.imdct.launches != 1:
-                raise AssertionError(f"imdct launched {tb.imdct.launches} times, expected 1")
-            want = tb.imdct_plain(*args, transform_for)
+            if launch_counts("imdct") != {"imdct": 1}:
+                raise AssertionError(f"imdct launched {launch_counts('imdct')}, expected once")
+            want = tb.imdct_plain(*args)
             gap, same, last_ok = imdct_gap(got, want)
             if not (gap <= IMDCT_TOL and last_ok):
                 raise AssertionError(f"imdct B={b} C={c} N={n}: {gap:.3g} of the row's peak "
@@ -1006,7 +1002,7 @@ def imdct_on_card(device, card):
             for _ in range(3):
                 tb.imdct(*args)
             _, ms = timed(tb.imdct, args, IMDCT_TIMED)
-            _, plain_ms = timed(tb.imdct_plain, (*args, transform_for), 3)
+            _, plain_ms = timed(tb.imdct_plain, args, 3)
             need = imdct_bytes(b, c, n)
             bound_ms = need / HBM_BYTES_PER_S * 1e3
             label = f"B={b} C={c} N={n} {'long blocks' if long_blocks else 'every pattern'}"
@@ -1115,8 +1111,7 @@ def single_stream(cfg, device, card):
 
     import torch
     from bench import make_corpus
-    from ulcx_torch.bitstream import decode_kernels as dk
-    from ulcx_torch.bitstream import encode_kernels as ek
+    from ulcx_torch._build import launch_counts, reset_launch_counts
     from ulcx_torch.codec.decoder import decode_stream, decode_stream_pipelined
     from ulcx_torch.codec.encoder import encode_stream
     from ulcx_torch.parallel.mesh import batch_encode
@@ -1124,10 +1119,10 @@ def single_stream(cfg, device, card):
     x = make_corpus(4, ONE_T, cfg.block_size)[0]  # [T, 2, N]
     audio_s = ONE_T * cfg.block_size / cfg.rate_hz
     kw = {"rate_kbps": RATE_KBPS}
-    ek.reset_launch_counts()
+    reset_launch_counts()
     out, _ = encode_stream(x, cfg, "cbr", **kw)
     torch.cuda.synchronize()
-    counts = ek.launch_counts()
+    counts = launch_counts(*PER_BLOCK)
     if counts != PER_BLOCK:  # all T blocks in one fold
         raise AssertionError(f"encode_stream launch counts {counts}, expected {PER_BLOCK}")
     check_encoded(out.size_bits[None], out.data[None], 1, ONE_T, cfg, "encode_stream")
@@ -1166,10 +1161,10 @@ def single_stream(cfg, device, card):
 
     streams, _, win, sizes = pack_streams(type(out)(*(v[None] for v in out)))
     stream = streams[0]
-    dk.reset_launch_counts()
+    reset_launch_counts()
     pcm, bits, corrupt, (off, dcarry) = decode_stream(stream, ONE_T, win, cfg)
     torch.cuda.synchronize()
-    dcounts = dk.launch_counts()
+    dcounts = launch_counts(*DEC_PER_BLOCK)
     if dcounts != {k: ONE_T * v for k, v in DEC_PER_BLOCK.items()}:
         raise AssertionError(f"decode_stream launch counts {dcounts}")
     if bool(corrupt.any()):
@@ -1207,10 +1202,10 @@ def single_stream(cfg, device, card):
     print(f"decode_stream cuda vs cpu T={few}: bits and corrupt equal, pcm {rms:.3g} RMS apart",
           flush=True)
 
-    dk.reset_launch_counts()
+    reset_launch_counts()
     ppcm, pbits, pcorrupt, (poff, pcarry) = decode_stream_pipelined(stream, ONE_T, win, cfg)
     torch.cuda.synchronize()
-    pcounts = dk.launch_counts()
+    pcounts = launch_counts(*DEC_PER_BLOCK)
     if pcounts != {"fsm": 0, "fsm_place": ONE_T, "rng_expand": 1, "rng": 0}:
         raise AssertionError(f"decode_stream_pipelined launch counts {pcounts}")
     for name, a, b_ in (("bits", pbits, bits), ("corrupt", pcorrupt, corrupt), ("offset", poff, off),
@@ -1294,10 +1289,8 @@ def rate_paths(device, card):
 
     import torch
     from bench import make_corpus
-    from ulcx_torch.bitstream import decode_kernels as dk
-    from ulcx_torch.bitstream import encode_kernels as ek
+    from ulcx_torch._build import launch_counts, reset_launch_counts
     from ulcx_torch.bitstream import fast_encode as fe
-    from ulcx_torch.codec import transform_batched as tb
     from ulcx_torch.codec.encoder import cbr_bit_budget, max_block_bytes
     from ulcx_torch.parallel.mesh import batch_decode, batch_encode
     from ulcx_torch.utils.config import CodecConfig
@@ -1307,10 +1300,10 @@ def rate_paths(device, card):
     x = make_corpus(RATE_B, RATE_T, RATE_BS)
     kw = {"rate_kbps": RATE_KBPS}
 
-    ek.reset_launch_counts()
+    reset_launch_counts()
     bis, _ = batch_encode(x, bcfg, "cbr", **kw)
     torch.cuda.synchronize()
-    bcounts = ek.launch_counts()
+    bcounts = launch_counts(*PER_BLOCK)
     want = {k: RATE_T * v for k, v in BISECT_PER_BLOCK.items()}
     if bcounts != want:
         raise AssertionError(f"bisect launch counts {bcounts}, expected {want}")
@@ -1352,13 +1345,11 @@ def rate_paths(device, card):
     out = {"bisect": bcounts}
     for label, c in (("off", dataclasses.replace(cfg, use_pallas="off")),
                      ("off, bisect", dataclasses.replace(bcfg, use_pallas="off"))):
-        ek.reset_launch_counts()
-        dk.reset_launch_counts()
-        tb.imdct.launches = 0
+        reset_launch_counts()
         enc, _ = batch_encode(x, c, "cbr", **kw)
         dec = batch_decode(streams, RATE_T, win, c) if label == "off" else None
         torch.cuda.synchronize()
-        launched = {**ek.launch_counts(), **dk.launch_counts(), "imdct": tb.imdct.launches}
+        launched = launch_counts()
         if any(launched.values()):
             raise AssertionError(f"use_pallas={label}: kernels launched {launched}")
         ref = lad if label == "off" else bis
@@ -1475,9 +1466,8 @@ def scan_path(device, card):
     launch counts}."""
     import torch
     from bench import make_corpus
+    from ulcx_torch._build import launch_counts, reset_launch_counts
     from ulcx_torch.analysis.block import map_leaves
-    from ulcx_torch.bitstream import decode_kernels as dk
-    from ulcx_torch.bitstream import encode_kernels as ek
     from ulcx_torch.bitstream import fast_encode as fe
     from ulcx_torch.codec.decoder import DecoderCarry, decode_block, decode_stream
     from ulcx_torch.codec.encoder import (cbr_bit_budget, encode_block, encode_stream,
@@ -1508,10 +1498,10 @@ def scan_path(device, card):
     dcounts, _, _, snr, (pcm, _, _) = decode_main_path(cfg, x, streams, win, sizes, device,
                                                        min_snr=None)
 
-    ek.reset_launch_counts()
+    reset_launch_counts()
     kern, _ = batch_encode(x[:SCAN_KERNEL_B], cfg, "cbr", rate_kbps=RATE_KBPS)
     torch.cuda.synchronize()
-    kcounts = ek.launch_counts()
+    kcounts = launch_counts(*PER_BLOCK)
     if kcounts != {k: SCAN_T * v for k, v in PER_BLOCK.items()}:
         raise AssertionError(f"kernel plan launch counts {kcounts}")
     check_encoded(kern.size_bits, kern.data, SCAN_KERNEL_B, SCAN_T, cfg, "kernel plan")
@@ -1533,21 +1523,21 @@ def scan_path(device, card):
     fcfg = CodecConfig(rate_hz=44100, n_chan=2, block_size=BS)
     xs = make_corpus(1, ONE_BLOCKS, BS)[0]
     kw = {"rate_kbps": RATE_KBPS}
-    ek.reset_launch_counts()
+    reset_launch_counts()
     whole, _ = encode_stream(xs, fcfg, "cbr", **kw)
     torch.cuda.synchronize()
-    s_counts = ek.launch_counts()
+    s_counts = launch_counts(*PER_BLOCK)
     if s_counts != ONE_BLOCK_PER_BLOCK:
         raise AssertionError(f"encode_stream T={ONE_BLOCKS} launch counts {s_counts}")
     carry = map_leaves(lambda v: v[0], init_carry_batched(fcfg, 1, device))
     blocks = torch.from_numpy(xs).to(device)
-    ek.reset_launch_counts()
+    reset_launch_counts()
     steps = []
     for j in range(ONE_BLOCKS):
         carry, enc = encode_block(carry, blocks[j], fcfg, "cbr", **kw)
         steps.append(enc)
     torch.cuda.synchronize()
-    b_counts = ek.launch_counts()
+    b_counts = launch_counts(*PER_BLOCK)
     if b_counts != {k: ONE_BLOCKS * v for k, v in ONE_BLOCK_PER_BLOCK.items()}:
         raise AssertionError(f"encode_block launch counts {b_counts}")
     for name in whole._fields:
@@ -1561,14 +1551,14 @@ def scan_path(device, card):
     pcm, bits, corrupt, (_, dcarry) = decode_stream(stream, ONE_BLOCKS, one_win, fcfg)
     dcarry_b = DecoderCarry.init(fcfg, 1, device)
     c = DecoderCarry(*(v[0] for v in dcarry_b))
-    dk.reset_launch_counts()
+    reset_launch_counts()
     off, outs = 0, []
     for j in range(ONE_BLOCKS):
         p, c, nbits, bad = decode_block(stream[off: off + one_win], c, fcfg)
         outs.append((p, nbits, bad))
         off += (int(nbits) + 7) // 8
     torch.cuda.synchronize()
-    d_counts = dk.launch_counts()
+    d_counts = launch_counts(*DEC_PER_BLOCK)
     if d_counts != {k: ONE_BLOCKS * v for k, v in DEC_BLOCK_PER_BLOCK.items()}:
         raise AssertionError(f"decode_block launch counts {d_counts}")
     for name, got_, want_ in (("pcm", torch.stack([o[0] for o in outs]), pcm),
@@ -1595,7 +1585,7 @@ def public_names(cfg, x, device, card):
 
     import torch
 
-    from ulcx_torch.bitstream import encode_kernels as ek
+    from ulcx_torch._build import launch_counts, reset_launch_counts
     from ulcx_torch.bitstream import fast_encode as fe
     from ulcx_torch.codec.encoder import cbr_bit_budget, max_block_bytes
     from ulcx_torch.ops import mdct, scanutil
@@ -1607,10 +1597,10 @@ def public_names(cfg, x, device, card):
         fb = fe.prepare_fast(blk, cfg)
         budget = cbr_bit_budget(cfg, RATE_KBPS).expand(b).to(device=device, dtype=torch.int32)
         args = (fb, blk.n_nz, budget, cfg)
-        ek.reset_launch_counts()
+        reset_launch_counts()
         n = fe.rate_search_fast(*args)
         torch.cuda.synchronize()
-        counts[b] = ek.launch_counts()
+        counts[b] = launch_counts(*PER_BLOCK)
         if counts[b] != RATE_SEARCH_FAST:
             raise AssertionError(f"rate_search_fast B={b}: launches {counts[b]}, "
                                  f"expected {RATE_SEARCH_FAST}")
@@ -1730,8 +1720,7 @@ def tools(device, card):
 
     import numpy as np
     from bench import make_corpus
-    from ulcx_torch.bitstream import decode_kernels as dk
-    from ulcx_torch.bitstream import encode_kernels as ek
+    from ulcx_torch._build import launch_counts, reset_launch_counts
     from ulcx_torch.codec.decoder import decode_stream
     from ulcx_torch.container import HEADER_SIZE, UlcHeader
     from ulcx_torch.io import native
@@ -1840,13 +1829,12 @@ def tools(device, card):
                 ("decode_tool FLOAT32", decode_main, ["d", ulc["cbr"], z + ".wav", "-format:FLOAT32"]),
                 ("decode_tool PCM16", decode_main, ["d", ulc["cbr"], z + ".wav"])):
             for _ in range(2):
-                ek.reset_launch_counts()
-                dk.reset_launch_counts()
+                reset_launch_counts()
                 t0 = time.perf_counter()
                 if fn(argv, device=device) != 0:
                     raise AssertionError(f"{label}: in process, a non-zero exit")
                 secs[label] = time.perf_counter() - t0
-            launched = {k: v for k, v in {**ek.launch_counts(), **dk.launch_counts()}.items() if v}
+            launched = {k: v for k, v in launch_counts().items() if v}
             print(f"\n{label} in process: realtime factor {audio_s / secs[label]:.1f}x ({audio_s:.1f} s "
                   f"of audio in {secs[label]:.2f} s, the second of two runs), launches {launched} "
                   f"[{card}]", flush=True)
@@ -1855,12 +1843,12 @@ def tools(device, card):
 
         # the batch tool over TOOL_FILES files
         out_dir = os.path.join(tmp, "batch")
-        ek.reset_launch_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         if batch_main(["b", out_dir, "128", *wavs, f"-blocksize:{n}"], device=device) != 0:
             raise AssertionError("batch_tool: a non-zero exit")
         bsecs = time.perf_counter() - t0
-        batch_counts = ek.launch_counts()
+        batch_counts = launch_counts(*PER_BLOCK)
         want = {k: n_blocks * v for k, v in PER_BLOCK.items()}
         if batch_counts != want:
             raise AssertionError(f"batch_tool: launch counts {batch_counts}, expected {want} "

@@ -45,7 +45,7 @@ def main(root: str, runs: int) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from bench import make_corpus
-    from ulcx_torch.bitstream import encode_kernels as ek
+    from ulcx_torch._build import launch_counts, reset_launch_counts
     from ulcx_torch.io.wavio import WavWriter
     from ulcx_torch.tools.batch_tool import main as batch_main
 
@@ -67,7 +67,7 @@ def main(root: str, runs: int) -> int:
             argv = ["b", os.path.join(tmp, f"out{files}"), "128", *wavs[:files], f"-blocksize:{BS}"]
             secs = []
             for run in range(runs + 1):
-                ek.reset_launch_counts()
+                reset_launch_counts()
                 log = io.StringIO()
                 t0 = time.perf_counter()
                 with contextlib.redirect_stdout(log):
@@ -80,7 +80,7 @@ def main(root: str, runs: int) -> int:
                     secs.append(dt)
             med = sorted(secs)[len(secs) // 2]
             print(json.dumps({"root": os.path.abspath(root), "files": files, "card": card,
-                              "launches": ek.launch_counts(), "seconds": secs,
+                              "launches": launch_counts(), "seconds": secs,
                               "rtf_median": files * audio_s / med}), flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

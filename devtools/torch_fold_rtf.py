@@ -71,15 +71,15 @@ def one(variant: str, runs: int, t: int) -> int:
     torch.backends.cudnn.allow_tf32 = False
     import chip_smoke as cs
     from bench import make_corpus
-    from ulcx_torch.bitstream import encode_kernels as ek
+    from ulcx_torch._build import launch_counts, reset_launch_counts
     from ulcx_torch.parallel.mesh import batch_encode
 
     cfg = variant_config(variant)
     blocks = torch.from_numpy(make_corpus(B, t, BS)).cuda()
-    ek.reset_launch_counts()
+    reset_launch_counts()
     out, _ = batch_encode(blocks, cfg, "cbr", rate_kbps=RATE_KBPS)  # builds and warms up
     torch.cuda.synchronize()
-    counts = ek.launch_counts()
+    counts = launch_counts()
     cs.check_encoded(out.size_bits, out.data, B, t, cfg, variant)
     torch.cuda.reset_peak_memory_stats()
     secs = []

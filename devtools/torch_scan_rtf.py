@@ -48,7 +48,7 @@ def main(root: str, runs: int) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from bench import make_corpus
-    from ulcx_torch.bitstream import encode_kernels as ek
+    from ulcx_torch._build import launch_counts, reset_launch_counts
     from ulcx_torch.parallel.mesh import batch_encode
     from ulcx_torch.utils.config import CodecConfig
 
@@ -61,10 +61,10 @@ def main(root: str, runs: int) -> int:
         x = s.reshape(b, c // 2, t, 2, n).transpose(0, 2, 1, 3, 4).reshape(b, t, c, n).copy()
         cfg = CodecConfig(rate_hz=44100, n_chan=c, block_size=n, noise_run_window=window)
         blocks = torch.from_numpy(np.ascontiguousarray(x)).to("cuda")
-        ek.reset_launch_counts()
+        reset_launch_counts()
         out, _ = batch_encode(blocks, cfg, "cbr", rate_kbps=128.0)
         torch.cuda.synchronize()
-        counts = ek.launch_counts()
+        counts = launch_counts()
         warm = []
         for _ in range(runs):
             t0 = time.perf_counter()

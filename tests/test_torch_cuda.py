@@ -27,6 +27,7 @@ from chip_smoke import (
     stream_seeds, synthetic_flags,
 )
 from ulcx_torch import _build
+from ulcx_torch._build import launch_counts, reset_launch_counts
 from ulcx_torch.analysis.batched import analyze_block_batched
 from ulcx_torch.bitstream import decode_kernels as dk
 from ulcx_torch.bitstream import encode_kernels as ek
@@ -47,6 +48,7 @@ pytestmark = pytest.mark.cuda
 N, C, B = 256, 2, 16
 CFG = CodecConfig(rate_hz=44100, n_chan=C, block_size=N)
 P = N * C
+ENC, DEC = ek.Walks._fields, dk.Walks._fields  # the encode and decode walks' kernel names
 
 
 @pytest.fixture(scope="module")
@@ -97,7 +99,7 @@ def _same(got, want):
 def test_kernels_match_plain(dev, b, n_chan):
     pl, nn, cfg = _planes(dev, b, n_chan)
     t, c = fe._tc_of(pl, nn)
-    ek.reset_launch_counts()
+    reset_launch_counts()
     s12 = ek.p1(t, c, pl.key, pl.coef, pl.aux)
     _same(s12, ek.p1_plain(t, c, pl.key, pl.coef, pl.aux))
     state = ek.p2(t, c, pl.key, pl.thr, pl.aux, s12)
@@ -109,7 +111,7 @@ def test_kernels_match_plain(dev, b, n_chan):
         _same(got, ek.p3_materialize_plain(*args))
     assert (got[1] < 0).any()  # packed words use the register's top bit
     torch.cuda.synchronize()
-    assert ek.launch_counts() == {"p1": 1, "p2": 1, "p3_size": 1, "p3_materialize": 2}
+    assert launch_counts(*ENC) == {"p1": 1, "p2": 1, "p3_size": 1, "p3_materialize": 2}
 
 
 def test_wrappers_refuse_mixed_devices_and_types(dev):
@@ -126,10 +128,10 @@ def test_wrappers_refuse_mixed_devices_and_types(dev):
 
 def test_encode_path_on_card_matches_cpu(dev):
     x = torch.from_numpy(make_corpus(8, 2, N))
-    ek.reset_launch_counts()
+    reset_launch_counts()
     got, _ = batch_encode(x, CFG, "cbr", rate_kbps=128.0, device=dev)
     torch.cuda.synchronize()
-    assert ek.launch_counts() == {"p1": 6, "p2": 6, "p3_size": 4, "p3_materialize": 2}
+    assert launch_counts(*ENC) == {"p1": 6, "p2": 6, "p3_size": 4, "p3_materialize": 2}
     want, _ = batch_encode(x, CFG, "cbr", rate_kbps=128.0, device="cpu")
     assert torch.equal(got.window_ctrl.cpu(), want.window_ctrl)
     assert int(got.size_bits.max()) <= int(cbr_bit_budget(CFG, 128.0))
@@ -156,7 +158,7 @@ def test_decode_kernels_match_plain(dev):
     garbage = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (4, win), dtype=np.uint8))
     windows = torch.cat([streams[:, :win], last, garbage]).to(dev)
     wc, _, tokens = fd._header_and_tokens(windows)
-    dk.reset_launch_counts()
+    reset_launch_counts()
     got = dk.fsm(wc, tokens, P, N)
     for g, w in zip(got, dk.fsm_plain(wc, tokens, P, N)):
         assert torch.equal(g, w)
@@ -173,7 +175,7 @@ def test_decode_kernels_match_plain(dev):
     (sign, s2), (sign_p, s2_p) = dk.rng(rflags, seed), dk.rng_plain(rflags, seed)
     assert torch.equal(sign, sign_p) and torch.equal(s2, s2_p) and torch.equal(s1, s2)
     torch.cuda.synchronize()
-    assert dk.launch_counts() == {"fsm": 1, "fsm_place": 1, "rng_expand": 1, "rng": 1}
+    assert launch_counts(*DEC) == {"fsm": 1, "fsm_place": 1, "rng_expand": 1, "rng": 1}
 
 
 def _fsm_windows(kind, b):
@@ -201,7 +203,7 @@ def _fsm_windows(kind, b):
 def test_fsm_kernels_match_plain_ragged(dev, kind):
     windows, n = _fsm_windows(kind, 13)
     wc, _, tokens = fd._header_and_tokens(torch.from_numpy(windows).to(dev))
-    dk.reset_launch_counts()
+    reset_launch_counts()
     got = dk.fsm(wc, tokens, C * n, n)
     for g, w in zip(got, dk.fsm_plain(wc, tokens, C * n, n)):
         assert g.dtype == torch.int32 and torch.equal(g, w)
@@ -216,7 +218,7 @@ def test_fsm_kernels_match_plain_ragged(dev, kind):
     else:
         assert corrupt.any() and ((placed[0] & 1).sum(0).cpu()[corrupt == 1] > 0).any()
     torch.cuda.synchronize()
-    assert dk.launch_counts() == {"fsm": 1, "fsm_place": 1, "rng_expand": 0, "rng": 0}
+    assert launch_counts(*DEC) == {"fsm": 1, "fsm_place": 1, "rng_expand": 0, "rng": 0}
 
 
 # B = 13 is not a multiple of the RNG kernels' stream tile; at P = 2048
@@ -226,7 +228,7 @@ def test_fsm_kernels_match_plain_ragged(dev, kind):
 def test_rng_kernels_match_plain_on_synthetic_flags(dev, b, n_pos):
     flags = torch.from_numpy(synthetic_flags(np.random.default_rng(b + n_pos), n_pos, b)).to(dev)
     seed = stream_seeds(b, 7).to(dev)
-    dk.reset_launch_counts()
+    reset_launch_counts()
     (coef, s1), (coef_p, s1_p) = dk.rng_expand(flags, seed), dk.rng_expand_plain(flags, seed)
     assert torch.equal(coef.view(torch.int32), coef_p.view(torch.int32)) and torch.equal(s1, s1_p)
     rflags = dk.rng_flags(flags)
@@ -236,7 +238,7 @@ def test_rng_kernels_match_plain_on_synthetic_flags(dev, b, n_pos):
     assert (tail[:600] != 0).all() and (tail[700:] == 0).all()
     assert (coef < 0).any() and (coef > 0).any()
     torch.cuda.synchronize()
-    assert dk.launch_counts() == {"fsm": 0, "fsm_place": 0, "rng_expand": 1, "rng": 1}
+    assert launch_counts(*DEC) == {"fsm": 0, "fsm_place": 0, "rng_expand": 1, "rng": 1}
 
 
 def test_entry_points_refuse_other_geometry(dev):
@@ -246,10 +248,10 @@ def test_entry_points_refuse_other_geometry(dev):
 def test_decode_path_on_card_matches_cpu(dev):
     t = 3
     streams, win, sizes = _streams(make_corpus(8, t, N), CFG)
-    dk.reset_launch_counts()
+    reset_launch_counts()
     pcm, bits, corrupt = batch_decode(streams, t, win, CFG, device=dev)
     torch.cuda.synchronize()
-    assert dk.launch_counts() == {"fsm": 0, "fsm_place": t, "rng_expand": t, "rng": 0}
+    assert launch_counts(*DEC) == {"fsm": 0, "fsm_place": t, "rng_expand": t, "rng": 0}
     pcm_c, bits_c, corrupt_c = batch_decode(streams, t, win, CFG, device="cpu")
     assert torch.equal(bits.cpu(), bits_c) and torch.equal(corrupt.cpu(), corrupt_c)
     assert not corrupt_c.any() and torch.equal((bits_c + 7) // 8 * 8, sizes)
@@ -272,10 +274,10 @@ def test_imdct_lap_kernel_matches_plain(dev, n, c):
     transform_for = CodecConfig().transform_for
     for b in (640, 13, 1):
         coefs, wc, lap, prev = args = imdct_inputs(b, c, n, dev, seed=n + 7 * b + c)
-        before = tb.imdct.launches
-        got = tb.imdct(*args)
+        reset_launch_counts()
+        got = tb.imdct(*args, transform_for)
         torch.cuda.synchronize()
-        assert tb.imdct.launches == before + 1
+        assert launch_counts("imdct") == {"imdct": 1}
         want = tb.imdct_plain(*args, transform_for)
         assert [tuple(x.shape) for x in got] == [tuple(x.shape) for x in want]
         gap, _, last_ok = imdct_gap(got, want)
@@ -294,18 +296,19 @@ def test_imdct_lap_kernel_matches_plain(dev, n, c):
 
 def test_imdct_lap_refuses_mixed_devices_types_and_geometry(dev):
     coefs, wc, lap, prev = imdct_inputs(4, 2, N, dev, seed=5)
+    tf = CFG.transform_for
     with pytest.raises(ValueError, match="several devices"):
-        tb.imdct(coefs, wc.cpu(), lap, prev)
+        tb.imdct(coefs, wc.cpu(), lap, prev, tf)
     with pytest.raises(TypeError):
-        tb.imdct(coefs, wc.long(), lap, prev)
+        tb.imdct(coefs, wc.long(), lap, prev, tf)
     with pytest.raises(TypeError):
-        tb.imdct(coefs.double(), wc, lap, prev)
+        tb.imdct(coefs.double(), wc, lap, prev, tf)
     with pytest.raises(ValueError, match="contiguous"):
-        tb.imdct(coefs, wc, lap.transpose(0, 1).contiguous().transpose(0, 1), prev)
+        tb.imdct(coefs, wc, lap.transpose(0, 1).contiguous().transpose(0, 1), prev, tf)
     with pytest.raises(ValueError, match="shape"):
-        tb.imdct(coefs, wc, lap[:, :, :-1].contiguous(), prev)
+        tb.imdct(coefs, wc, lap[:, :, :-1].contiguous(), prev, tf)
     with pytest.raises(ValueError, match="block size"):
-        tb.imdct(coefs[..., :192].contiguous(), wc, lap[..., :96].contiguous(), prev)
+        tb.imdct(coefs[..., :192].contiguous(), wc, lap[..., :96].contiguous(), prev, tf)
     # the entry point refuses a geometry other than its own, launching nothing
     lib = _build.library()
     g = tb.imdct_geometry(4, 2, N)
@@ -328,19 +331,19 @@ def test_imdct_lap_on_the_decode_paths(dev):
     (the plain path's GEMMs round otherwise than the kernel's FFT)."""
     t = 3
     streams, win, _ = _streams(make_corpus(8, t, N), CFG)
-    tb.imdct.launches = 0
+    reset_launch_counts()
     pcm, bits, corrupt = batch_decode(streams, t, win, CFG, device=dev)
     torch.cuda.synchronize()
-    assert tb.imdct.launches == t
-    tb.imdct.launches = 0
+    assert launch_counts("imdct") == {"imdct": t}
+    reset_launch_counts()
     decode_stream_pipelined(streams[0], t, win, CFG)
     torch.cuda.synchronize()
-    assert tb.imdct.launches == 2
-    tb.imdct.launches = 0
+    assert launch_counts("imdct") == {"imdct": 2}
+    reset_launch_counts()
     off = dataclasses.replace(CFG, use_pallas="off")
     got = batch_decode(streams, t, win, off, device=dev)
     torch.cuda.synchronize()
-    assert tb.imdct.launches == 0
+    assert launch_counts("imdct") == {"imdct": 0}
     assert torch.equal(got[1], bits) and torch.equal(got[2], corrupt)
     assert float(torch.sqrt(torch.mean((got[0] - pcm) ** 2))) <= PCM_RMS
 
@@ -366,11 +369,11 @@ def test_folded_encode_on_card_matches_block_loop(dev, change, runs):
     t = 4
     x = torch.from_numpy(make_corpus(13, t, N))
     want, _ = batch_encode(x, CFG, "cbr", rate_kbps=128.0, device=dev)
-    ek.reset_launch_counts()
+    reset_launch_counts()
     got, _ = batch_encode(x, CodecConfig(rate_hz=44100, n_chan=C, block_size=N, **change), "cbr",
                           rate_kbps=128.0, device=dev)
     torch.cuda.synchronize()
-    assert ek.launch_counts() == {"p1": 7 * runs, "p2": 7 * runs, "p3_size": 6 * runs,
+    assert launch_counts(*ENC) == {"p1": 7 * runs, "p2": 7 * runs, "p3_size": 6 * runs,
                                   "p3_materialize": runs}
     assert torch.equal(got.window_ctrl, want.window_ctrl)
     if "fold_bitstream" in change:
@@ -400,10 +403,10 @@ def test_single_stream_round_trip_on_card(dev):
         assert a.device.type == "cuda"
         assert torch.equal(torch.cat([h, tl]), a) and torch.equal(r[0], a)
     streams, _, win, sizes = pack_streams(type(out)(*(v[None] for v in out)))
-    dk.reset_launch_counts()
+    reset_launch_counts()
     pcm, bits, corrupt, (off, _) = decode_stream(streams[0], t, win, CFG)
     torch.cuda.synchronize()
-    assert dk.launch_counts() == {"fsm": 0, "fsm_place": t, "rng_expand": t, "rng": 0}
+    assert launch_counts(*DEC) == {"fsm": 0, "fsm_place": t, "rng_expand": t, "rng": 0}
     assert not bool(corrupt.any()) and int(off) == int(sizes.sum()) // 8
     assert torch.equal(((bits + 7) // 8 * 8).cpu(), sizes[0])
     h = decode_stream(streams[0], 3, win, CFG)
@@ -469,10 +472,10 @@ def test_rate_paths_on_card(dev):
     t = 2
     x = torch.from_numpy(make_corpus(13, t, N))
     bcfg = CodecConfig(rate_hz=44100, n_chan=C, block_size=N, rate_search="bisect")
-    ek.reset_launch_counts()
+    reset_launch_counts()
     bis, _ = batch_encode(x, bcfg, "cbr", rate_kbps=128.0, device=dev)
     torch.cuda.synchronize()
-    assert ek.launch_counts() == {"p1": 11 * t, "p2": 11 * t, "p3_size": 10 * t,
+    assert launch_counts(*ENC) == {"p1": 11 * t, "p2": 11 * t, "p3_size": 10 * t,
                                   "p3_materialize": t}
     assert int(bis.size_bits.max()) <= int(cbr_bit_budget(CFG, 128.0))
     lad, _ = batch_encode(x, CFG, "cbr", rate_kbps=128.0, device=dev)
@@ -480,14 +483,11 @@ def test_rate_paths_on_card(dev):
     dec = batch_decode(streams, t, win, CFG, device=dev)
     for cfg, ref in ((CFG, lad), (bcfg, bis)):
         off = dataclasses.replace(cfg, use_pallas="off")
-        ek.reset_launch_counts()
-        dk.reset_launch_counts()
-        tb.imdct.launches = 0
+        reset_launch_counts()
         got, _ = batch_encode(x, off, "cbr", rate_kbps=128.0, device=dev)
         got_dec = batch_decode(streams, t, win, off, device=dev)
         torch.cuda.synchronize()
-        assert not any({**ek.launch_counts(), **dk.launch_counts(),
-                        "imdct": tb.imdct.launches}.values())
+        assert not any(launch_counts().values())
         assert torch.equal(got.data, ref.data) and torch.equal(got.size_bits, ref.size_bits)
         # bits and corrupt flags exact; PCM through the plain path's GEMMs, not the kernel's FFT
         assert torch.equal(got_dec[1], dec[1]) and torch.equal(got_dec[2], dec[2])
@@ -500,10 +500,10 @@ def test_pipelined_decoder_on_card(dev):
     out, _ = encode_stream(x, CFG, "cbr", rate_kbps=128.0)
     streams, _, win, _ = pack_streams(type(out)(*(v[None] for v in out)))
     pcm, bits, corrupt, (off, carry) = decode_stream(streams[0], t, win, CFG)
-    dk.reset_launch_counts()
+    reset_launch_counts()
     ppcm, pbits, pcorrupt, (poff, pcarry) = decode_stream_pipelined(streams[0], t, win, CFG)
     torch.cuda.synchronize()
-    assert dk.launch_counts() == {"fsm": 0, "fsm_place": t, "rng_expand": 1, "rng": 0}
+    assert launch_counts(*DEC) == {"fsm": 0, "fsm_place": t, "rng_expand": 1, "rng": 0}
     assert torch.equal(pbits, bits) and torch.equal(pcorrupt, corrupt) and torch.equal(poff, off)
     assert torch.equal(pcarry.rng, carry.rng) and torch.equal(pcarry.prev_last_ss,
                                                               carry.prev_last_ss)
@@ -519,10 +519,10 @@ def test_gap_window_on_card(dev):
     t = 2
     gcfg = CodecConfig(rate_hz=44100, n_chan=C, block_size=N, noise_run_window="gap")
     x = torch.from_numpy(make_corpus(13, t, N))
-    ek.reset_launch_counts()
+    reset_launch_counts()
     out, _ = batch_encode(x, gcfg, "abr", rate_kbps=128.0, avg_complexity=0.5, device=dev)
     torch.cuda.synchronize()
-    assert ek.launch_counts() == {"p1": 7 * t, "p2": 7 * t, "p3_size": 0, "p3_materialize": 0}
+    assert launch_counts(*ENC) == {"p1": 7 * t, "p2": 7 * t, "p3_size": 0, "p3_materialize": 0}
     _, blk = analyze_block_batched(init_carry_batched(gcfg, 13, dev), x[:, 0].to(dev), gcfg)
     fb = fe.prepare_fast(blk, gcfg)
     budget = cbr_bit_budget(gcfg, 128.0).expand(13).to(torch.int32)

@@ -24,6 +24,7 @@ from ulcx.codec import transform_batched as jtb
 from ulcx.codec.encoder import encode_stream_batched
 from ulcx.parallel.mesh import batch_decode as j_batch_decode
 from ulcx.utils.config import CodecConfig
+from ulcx_torch._build import launch_counts, reset_launch_counts
 from ulcx_torch.bitstream import decode_kernels as dk
 from ulcx_torch.bitstream import fast_decode as tfd
 from ulcx_torch.codec import decoder as tdec
@@ -131,25 +132,31 @@ def test_block_imdct_batched_matches(n):
 
 def test_imdct_lap_runs_plain_on_cpu():
     """On CPU tensors the inverse transform's wrapper runs its plain
-    version and launches nothing, whatever use_pallas says; the plain
-    version is the class GEMMs and ``imdct_lap_plain``; the kernel's table
-    holds the parts it reads, in its order."""
+    version with the caller's transforms and launches nothing, whatever
+    use_pallas says; the plain version is the class GEMMs and
+    ``imdct_lap_plain``; the kernel's table holds the parts it reads, in
+    its order."""
     rng = np.random.default_rng(7)
     b = 16
     wc = torch.from_numpy((np.arange(b) << 4 | rng.integers(0, 8, b)).astype(np.int32))
     prev = torch.from_numpy(rng.choice([0, N, N // 2, N // 4, N // 8], b).astype(np.int32))
     coefs = torch.from_numpy(rng.standard_normal((b, C, N)).astype(np.float32))
     lap = torch.from_numpy(rng.standard_normal((b, C, N // 2)).astype(np.float32))
-    ttb.imdct.launches = 0
+    reset_launch_counts()
     got = ttb.block_imdct_batched(coefs, wc, lap, prev, TCFG)
     off = ttb.block_imdct_batched(coefs, wc, lap, prev, TCodecConfig(rate_hz=44100, n_chan=C,
                                                                       block_size=N,
                                                                       use_pallas="off"))
-    wrapped = ttb.imdct(coefs, wc, lap, prev)
-    assert ttb.imdct.launches == 0
+    wrapped = ttb.imdct(coefs, wc, lap, prev, TCFG.transform_for)
+    assert launch_counts("imdct") == {"imdct": 0}
     plain = ttb.imdct_lap_plain(ttb.class_halfspecs(coefs, TCFG.transform_for), wc, lap, prev)
     for g, w, x, y in zip(got, off, wrapped, plain):
         assert torch.equal(g, w) and torch.equal(g, x) and torch.equal(g, y)
+    # a direct call takes the caller's DCT-IV backend, as block_imdct_batched does
+    fft = TCodecConfig(rate_hz=44100, n_chan=C, block_size=N, transform_backend="fft")
+    for g, w in zip(ttb.imdct(coefs, wc, lap, prev, fft.transform_for),
+                    ttb.block_imdct_batched(coefs, wc, lap, prev, fft)):
+        assert torch.equal(g, w)
     tables = ttb.lap_tables(N, torch.device("cpu"))
     t = ttb.device_tables(N, torch.device("cpu"))
     assert tables.dtype == torch.int32 and tables.numel() == 4 * 16 * 15 + 16 + 16 + 15

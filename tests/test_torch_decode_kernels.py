@@ -29,6 +29,7 @@ from ulcx.bitstream import fast_decode as jfd
 from ulcx.bitstream import pallas_decode as pd
 from ulcx.codec.encoder import encode_stream_batched
 from ulcx.utils.config import CodecConfig
+from ulcx_torch._build import launch_counts, reset_launch_counts
 from ulcx_torch.bitstream import decode_kernels as dk
 from ulcx_torch.bitstream import encode_kernels as ek
 from ulcx_torch.bitstream.fast_decode import _header_and_tokens
@@ -192,10 +193,10 @@ def test_fsm_place_matches_ulcx(enc, kind):
     np.testing.assert_array_equal(g_corrupt.numpy(), corrupt)
     assert (want & 1).any()
     # the wrapper takes the plain version on CPU tensors and counts no launch
-    dk.reset_launch_counts()
+    reset_launch_counts()
     for g, w in zip(dk.fsm_place(wc, tokens, C * n, n), (flags, g_consumed, g_corrupt)):
         assert torch.equal(g, w)
-    assert dk.launch_counts()["fsm_place"] == 0
+    assert launch_counts("fsm_place") == {"fsm_place": 0}
 
 
 def _unpack(words, name):

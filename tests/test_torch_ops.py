@@ -266,3 +266,35 @@ def test_imdct_matches(n):
     # the expansion only moves and negates values: exact
     np.testing.assert_array_equal(tmdct.imdct_expand(torch.from_numpy(v_want)).numpy(),
                                   np.asarray(jmdct.imdct_expand(jnp.asarray(v_want))))
+
+
+def test_kernel_registry():
+    """Every entry point of the kernel library has exactly one wrapper,
+    registered under its name less ``ulcx_``, with a plain version; the
+    wrappers are the modules' names, and the one launch registry covers
+    all nine kernels."""
+    from ulcx_torch import _build
+    from ulcx_torch.bitstream import decode_kernels as dk
+    from ulcx_torch.bitstream import encode_kernels as ek
+
+    names = {e.removeprefix("ulcx_") for e in _build._SIGNATURES}
+    assert len(names) == 9 and set(_build.KERNELS) == names
+    for name, fn in _build.KERNELS.items():
+        module = ek if name in ek.Walks._fields else dk if name in dk.Walks._fields else ttb
+        assert getattr(module, name) is fn and fn.__name__ == name
+        assert fn.plain is getattr(module, f"{name}_plain")
+    assert set(ek.KERNEL_WALKS + dk.KERNEL_WALKS + (ttb.imdct,)) == set(_build.KERNELS.values())
+    assert ek.PLAIN_WALKS == tuple(w.plain for w in ek.KERNEL_WALKS)
+    assert dk.PLAIN_WALKS == tuple(w.plain for w in dk.KERNEL_WALKS)
+    _build.reset_launch_counts()
+    assert _build.launch_counts() == dict.fromkeys(names, 0)
+    assert _build.launch_counts("p1", "imdct") == {"p1": 0, "imdct": 0}
+    seed = torch.tensor([1234567, 7], dtype=torch.int32)
+    flags = torch.tensor([[1, 0], [3, 1], [0, 0]], dtype=torch.int32)
+    for got, want in zip(dk.rng(flags, seed), dk.rng_plain(flags, seed)):  # CPU: the plain version
+        assert torch.equal(got, want)
+    assert not any(_build.launch_counts().values())
+    with pytest.raises(ValueError, match="several devices"):
+        dk.rng(flags, seed.to("meta"))
+    assert not _build.kernels_on(TCodecConfig(use_pallas="off"))
+    assert _build.kernels_on(TCodecConfig(use_pallas="on")) and _build.kernels_on(TCodecConfig())

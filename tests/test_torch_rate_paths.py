@@ -167,9 +167,8 @@ def test_off_matches_default(monkeypatch, x, search):
             off += nb
     base_pcm = batch_decode(torch.from_numpy(streams), 2, win, TCodecConfig(**KW), device="cpu")
 
-    from ulcx_torch.bitstream import decode_kernels as dk
-    monkeypatch.setattr(ek, "KERNEL_WALKS", ek.Walks(*(_raising,) * 4))
-    monkeypatch.setattr(dk, "KERNEL_WALKS", dk.Walks(*(_raising,) * 4))
+    from ulcx_torch import _build
+    monkeypatch.setattr(_build, "on_cpu", _raising)  # every kernel wrapper's first step
     off_cfg = TCodecConfig(**KW, rate_search=search, use_pallas="off")
     got, _ = batch_encode(xs, off_cfg, "cbr", device="cpu", **kw)
     for name in ("size_bits", "data", "window_ctrl"):

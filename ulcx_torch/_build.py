@@ -10,9 +10,10 @@ flags, so a changed source or header is rebuilt at its first use and an
 unchanged one is loaded as it is. Nothing is built when the module is
 imported.
 
-``on_cpu``, ``check`` and ``launch`` are the wrappers' common steps: a
-wrapper runs its plain version on CPU tensors, and on CUDA tensors
-checks its arguments and launches its kernel.
+Each entry point's wrapper is registered with ``kernel(plain)``: it runs
+its plain version on CPU tensors, and on CUDA tensors checks its
+arguments (``check``), launches (``launch``) and counts the launch
+(``launch_counts``). ``kernels_on`` is the one reading of ``use_pallas``.
 """
 
 from __future__ import annotations
@@ -23,8 +24,10 @@ import os
 import shutil
 import subprocess
 import time
-from functools import lru_cache
+from functools import lru_cache, wraps
 from pathlib import Path
+
+import torch
 
 from ulcx_torch.utils.profiling import span
 
@@ -102,10 +105,10 @@ def library() -> ctypes.CDLL:
         return lib
 
 
-def on_cpu(*tensors) -> bool:
-    """True when every input lies on the CPU; False when all lie on one
-    CUDA device; anything else raises."""
-    devs = {x.device for x in tensors}
+def on_cpu(*args) -> bool:
+    """True when every tensor among ``args`` lies on the CPU; False when
+    all lie on one CUDA device; anything else raises."""
+    devs = {x.device for x in args if isinstance(x, torch.Tensor)}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {sorted(map(str, devs))}")
     (dev,) = devs
@@ -129,11 +132,53 @@ def check(name: str, x, dtype, shape) -> None:
 def launch(fn_name: str, tensors, ints, device) -> None:
     """Call entry point ``fn_name`` on the current stream of ``device``
     with the tensors' pointers, then the ints; raise on a CUDA error."""
-    import torch
-
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn_name)(*(x.data_ptr() for x in tensors), *ints, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name}: kernel launch failed with CUDA error {rc}")
+
+
+# kernel name (its entry point without "ulcx_") -> its wrapper; -> its launches
+KERNELS: dict = {}
+_LAUNCHES = dict.fromkeys((name.removeprefix("ulcx_") for name in _SIGNATURES), 0)
+
+
+def kernel(plain):
+    """Register the decorated function, which launches entry point
+    ``ulcx_<its name>``, as its wrapper: on CPU tensors the wrapper runs
+    ``plain`` (the same arguments; also its ``.plain``), on a CUDA device
+    the function, and counts the launch."""
+    def register(fn):
+        name = fn.__name__
+        if name not in _LAUNCHES or name in KERNELS:
+            raise ValueError(f"{name}: no entry point ulcx_{name}, or registered twice")
+
+        @wraps(fn)
+        def wrapper(*args):
+            if on_cpu(*args):
+                return plain(*args)
+            out = fn(*args)
+            _LAUNCHES[name] += 1
+            return out
+
+        wrapper.plain = plain
+        KERNELS[name] = wrapper
+        return wrapper
+    return register
+
+
+def kernels_on(cfg) -> bool:
+    """False under ``use_pallas="off"``: every path then takes the plain
+    versions on any device and launches nothing."""
+    return cfg.use_pallas != "off"
+
+
+def reset_launch_counts() -> None:
+    _LAUNCHES.update(dict.fromkeys(_LAUNCHES, 0))
+
+
+def launch_counts(*names) -> dict:
+    """Launches since the last reset of the kernels ``names`` (all nine by default)."""
+    return {n: _LAUNCHES[n] for n in names or _LAUNCHES}

@@ -22,23 +22,12 @@ from ulcx_torch.analysis.block import (
 from ulcx_torch.analysis.psy import masking_curve, noise_log_spectrum
 from ulcx_torch.analysis.window_control import get_window_ctrl
 from ulcx_torch.codec.transform import first_overlap, last_subblock_size
-from ulcx_torch.codec.transform_batched import block_mdct_mdst_batched, device_tables
+from ulcx_torch.codec.transform_batched import block_mdct_mdst_batched, device_tables, select_class
 from ulcx_torch.ops.fastlog import fast_log
 from ulcx_torch.utils.config import COEF_EPS, CodecConfig
 from ulcx_torch.utils.profiling import span
 
 _HALF_EPS = float(np.float32(0.5 * COEF_EPS))
-
-
-def _select_class(per_class, cls_coef):
-    """per_class: 4 tensors [..., N]; cls_coef [B, N] -> [..., N] taking
-    class cls_coef at each coefficient (extra middle axes broadcast)."""
-    stacked = torch.stack(per_class, dim=-1)
-    idx = cls_coef.long()
-    while idx.dim() < stacked.dim() - 1:
-        idx = idx[:, None]
-    idx = idx.expand(stacked.shape[:-1])[..., None]
-    return torch.gather(stacked, -1, idx)[..., 0]
 
 
 def _psy_noise_batched(mdct, mdst, window_ctrl, cfg: CodecConfig):
@@ -59,7 +48,7 @@ def _psy_noise_batched(mdct, mdst, window_ctrl, cfg: CodecConfig):
                 mk = masking_curve(lines_tot.reshape(b, npos, m), m, cfg.rate_hz)
                 # coefficient k of a class maps to line k//2 of its layout
                 mask_cls.append(torch.repeat_interleave(mk.reshape(b, n // 2), 2, dim=-1))
-            mask_coef = _select_class(mask_cls, cls_coef)
+            mask_coef = select_class(mask_cls, cls_coef)
         else:
             mask_coef = torch.zeros(b, n, dtype=torch.float32, device=mdct.device)
         if cfg.use_noise_coding:
@@ -68,7 +57,7 @@ def _psy_noise_batched(mdct, mdst, window_ctrl, cfg: CodecConfig):
                 npos, m = 1 << cls, (n >> cls) // 2
                 nz = noise_log_spectrum(lines.reshape(b, c, npos, m), m, cfg.rate_hz)
                 noise_cls.append(nz.reshape(b, c, n))
-            noise = _select_class(noise_cls, cls_coef)
+            noise = select_class(noise_cls, cls_coef)
         else:
             noise = torch.zeros_like(mdct)
         return mask_coef, noise

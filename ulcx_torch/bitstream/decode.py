@@ -18,7 +18,8 @@ on its decode kernels:
   (``decode_kernels.place_records``) and runs the RNG-expand kernel.
 
 On a CPU tensor both kernels' wrappers run their plain versions; with
-``use_pallas="off"`` the plain versions run wherever the tensors lie.
+``use_pallas="off"`` the plain versions run wherever the tensors lie
+(``fast_decode.walks``).
 ``codec.decoder.decode_block`` is built on these two, as ulcx's is.
 """
 
@@ -52,7 +53,7 @@ from ulcx_torch.bitstream.decode_kernels import (  # noqa: F401 (ulcx's names he
     REC_TAIL,
     REC_ZERO,
 )
-from ulcx_torch.bitstream.fast_decode import walks_for
+from ulcx_torch.bitstream.fast_decode import walks
 from ulcx_torch.bitstream.tables import segment_tables
 from ulcx_torch.utils.config import CodecConfig
 
@@ -168,17 +169,17 @@ def decode_block_tokens(tokens: torch.Tensor, window_ctrl: torch.Tensor, cfg: Co
     wc = torch.as_tensor(window_ctrl, dtype=_I32).to(tokens.device).reshape(1)
     tok = tokens.to(_I32).reshape(-1, 1).contiguous()
     p_tot = cfg.block_size * cfg.n_chan
-    rec, code, consumed, corrupt = walks_for(cfg.use_pallas).fsm(wc, tok, p_tot, cfg.block_size)
+    rec, code, consumed, corrupt = walks(cfg).fsm(wc, tok, p_tot, cfg.block_size)
     return _records(rec[:, 0], code[:, 0], tok[:, 0], wc[0], cfg), consumed[0], corrupt[0] == 1
 
 
 def expand_records(records: Records, rng_state: torch.Tensor, p_tot: int,
-                   use_pallas: str = "auto"):
+                   rng_expand=dk.rng_expand):
     """Records -> coefficients [P] f32 and the new RNG state. rng_state
     is 0-d int32 holding the u32 xorshift32 state's bits, carried across
     blocks. The records' words go to their starts, then the RNG-expand
-    walk (the kernel, or with ``use_pallas="off"`` its plain version)
-    replays the noise and fills the records.
+    walk ``rng_expand`` (the kernel, or its plain version: the pick of
+    ``fast_decode.walks``) replays the noise and fills the records.
 
     As in ulcx's scan expansion, a position takes the record that
     starts last at or before it, so past the last record of a block
@@ -188,7 +189,7 @@ def expand_records(records: Records, rng_state: torch.Tensor, p_tot: int,
     corrupt block's coefficients either way."""
     flags = dk.place_records(records.rec[:, None], records.code[:, None], p_tot)
     seed = torch.as_tensor(rng_state, dtype=_I32).to(flags.device).reshape(1)
-    coef, seed = walks_for(use_pallas).rng_expand(flags, seed)
+    coef, seed = rng_expand(flags, seed)
     t_len = records.emit.shape[0]
     last = torch.where(records.emit, torch.arange(t_len, device=flags.device), -1).amax()
     j = last.clamp(min=0)

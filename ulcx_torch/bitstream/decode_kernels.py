@@ -8,11 +8,11 @@ expansion word at its start position instead (the machine fused with
 ``records_to_flags``), which is what ``fast_decode.decode_block_fast``
 runs. Each kernel has
 
-- a wrapper (``fsm``, ``fsm_place``, ``rng_expand``, ``rng``): on a CPU
-  tensor it runs the plain version; on a CUDA tensor it launches its
-  kernel from ``csrc/decode_walks.cu`` or raises. It checks device,
-  dtype, shape and contiguity, allocates the outputs, launches on the
-  current stream, and adds one to its ``launches`` counter;
+- a wrapper (``fsm``, ``fsm_place``, ``rng_expand``, ``rng``),
+  registered by ``_build.kernel``: on a CPU tensor it runs the plain
+  version; on a CUDA tensor it checks dtype, shape and contiguity,
+  allocates the outputs and launches its kernel from
+  ``csrc/decode_walks.cu`` on the current stream, or raises;
 - a plain PyTorch version (``*_plain``) with the same signature: a
   Python loop over tokens or positions, vectorized over streams, on
   whatever device its inputs lie. It is the CPU path, the
@@ -46,8 +46,8 @@ import numpy as np
 import torch
 
 from ulcx_torch._build import check as _check
+from ulcx_torch._build import kernel
 from ulcx_torch._build import launch as _launch
-from ulcx_torch._build import on_cpu as _on_cpu
 from ulcx_torch.bitstream.encode_kernels import STAGES, _arr, _wrap_i32
 from ulcx_torch.ops.patterns import pattern_subblock_offsets, pattern_subblock_sizes
 from ulcx_torch.ops.quant import expand_quantizer
@@ -460,34 +460,30 @@ def _fsm_args(wc, tokens, p_tot: int, n: int):
             torch.empty((b,), dtype=_I32, device=dev))
 
 
+@kernel(fsm_plain)
 def fsm(wc, tokens, p_tot: int, n: int):
     """Nybble-syntax state machine (replaces pallas_decode._fsm_kernel)
     -> (rec, code, consumed, corrupt); see ``fsm_plain``."""
-    if _on_cpu(wc, tokens):
-        return fsm_plain(wc, tokens, p_tot, n)
     t_len, b, ins, consumed, corrupt = _fsm_args(wc, tokens, p_tot, n)
     # the kernel stops at the end of the block: tokens after it stay 0
     rec = torch.zeros((t_len, b), dtype=_I32, device=tokens.device)
     code = torch.zeros((t_len, b), dtype=_I32, device=tokens.device)
     _launch("ulcx_fsm", (*ins, rec, code, consumed, corrupt),
             (b, t_len, p_tot, n, *_fsm_geometry_ints(t_len, b)), tokens.device)
-    fsm.launches += 1
     return rec, code, consumed, corrupt
 
 
+@kernel(fsm_place_plain)
 def fsm_place(wc, tokens, p_tot: int, n: int):
     """The state machine fused with the record placement (replaces
     pallas_decode._fsm_kernel together with fast_decode's
     records_to_flags) -> (flags [P, B], consumed, corrupt); see
     ``fsm_place_plain``."""
-    if _on_cpu(wc, tokens):
-        return fsm_place_plain(wc, tokens, p_tot, n)
     t_len, b, ins, consumed, corrupt = _fsm_args(wc, tokens, p_tot, n)
     # the kernel writes at record starts only
     flags = torch.zeros((p_tot, b), dtype=_I32, device=tokens.device)
     _launch("ulcx_fsm_place", (*ins, flags, consumed, corrupt),
             (b, t_len, p_tot, n, *_fsm_geometry_ints(t_len, b)), tokens.device)
-    fsm_place.launches += 1
     return flags, consumed, corrupt
 
 
@@ -499,35 +495,26 @@ def _rng_args(flags, seed):
     return n_pos, b, torch.empty((b,), dtype=_I32, device=flags.device)
 
 
+@kernel(rng_expand_plain)
 def rng_expand(flags, seed):
     """Fused RNG replay and coefficient assembly (replaces
     pallas_decode._rng_expand_kernel) -> (coef [P, B] f32, new seed)."""
-    if _on_cpu(flags, seed):
-        return rng_expand_plain(flags, seed)
     n_pos, b, seed_out = _rng_args(flags, seed)
     coef = torch.empty((n_pos, b), dtype=torch.float32, device=flags.device)
     _launch("ulcx_rng_expand", (flags, seed, coef, seed_out),
             (b, n_pos, *_rng_geometry_ints(n_pos, b, True)), flags.device)
-    rng_expand.launches += 1
     return coef, seed_out
 
 
+@kernel(rng_plain)
 def rng(flags, seed):
     """Unfused sign replay (replaces pallas_decode._rng_kernel) ->
     (sign [P, B] f32, new seed)."""
-    if _on_cpu(flags, seed):
-        return rng_plain(flags, seed)
     n_pos, b, seed_out = _rng_args(flags, seed)
     sign = torch.empty((n_pos, b), dtype=torch.float32, device=flags.device)
     _launch("ulcx_rng", (flags, seed, sign, seed_out),
             (b, n_pos, *_rng_geometry_ints(n_pos, b, False)), flags.device)
-    rng.launches += 1
     return sign, seed_out
-
-
-KERNELS = (fsm, fsm_place, rng_expand, rng)
-for _fn in KERNELS:
-    _fn.launches = 0
 
 
 class Walks(NamedTuple):
@@ -539,14 +526,5 @@ class Walks(NamedTuple):
     rng: Callable
 
 
-KERNEL_WALKS = Walks(*KERNELS)  # the kernels (a CPU tensor runs the plain version)
-PLAIN_WALKS = Walks(fsm_plain, fsm_place_plain, rng_expand_plain, rng_plain)  # on any device
-
-
-def reset_launch_counts() -> None:
-    for fn in KERNELS:
-        fn.launches = 0
-
-
-def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+KERNEL_WALKS = Walks(fsm, fsm_place, rng_expand, rng)  # a CPU tensor runs the plain versions
+PLAIN_WALKS = Walks(*(w.plain for w in KERNEL_WALKS))  # on any device

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ulcx_torch.bitstream import encode_kernels as ek
 from ulcx_torch.bitstream import fast_encode as fe
 
 
@@ -35,7 +36,7 @@ def _planes(fb: fe.FastBlockData, noise_run_window: str) -> fe.Planes:
 def encode_pass_size(fb: fe.FastBlockData, n_out_coef, noise_run_window: str = "gap") -> torch.Tensor:
     """Block sizes in bits [B] (byte aligned) of the counts n_out_coef [B]."""
     n = torch.as_tensor(n_out_coef).to(fb.coef.device).reshape(-1)
-    w = fe.walks_for("auto", noise_run_window)
+    w = fe.window_walks(ek.KERNEL_WALKS, noise_run_window)
     return fe.round_sizes(_planes(fb, noise_run_window), fb.n_header, fe._every_slot(n), w)[:, 0]
 
 
@@ -44,5 +45,5 @@ def encode_pass_materialize(fb: fe.FastBlockData, n_out_coef, max_bytes: int,
     """(size_bits [B], bytes [B, max_bytes] uint8) of the counts
     n_out_coef [B]."""
     n = torch.as_tensor(n_out_coef).to(fb.coef.device).reshape(-1)
-    w = fe.walks_for("auto", noise_run_window)
+    w = fe.window_walks(ek.KERNEL_WALKS, noise_run_window)
     return fe._packed(_planes(fb, noise_run_window), fb.n_header, n, max_bytes, w)

@@ -2,11 +2,11 @@
 
 Port of ``ulcx.bitstream.pallas_encode3``. Each walk has
 
-- a wrapper (``p1``, ``p2``, ``p3_size``, ``p3_materialize``): on a CPU
-  tensor it runs the plain version; on a CUDA tensor it launches its
-  kernel from ``csrc/encode_walks.cu`` or raises. It checks device,
-  dtype, shape and contiguity, allocates the outputs, launches on the
-  current stream, and adds one to its ``launches`` counter;
+- a wrapper (``p1``, ``p2``, ``p3_size``, ``p3_materialize``),
+  registered by ``_build.kernel``: on a CPU tensor it runs the plain
+  version; on a CUDA tensor it checks dtype, shape and contiguity,
+  allocates the outputs and launches its kernel from
+  ``csrc/encode_walks.cu`` on the current stream, or raises;
 - a plain PyTorch version (``*_plain``) with the same signature, on
   whatever device its inputs lie: whole-plane ops, no loop over
   positions (p1 a binary search over sparse tables of window minima and
@@ -45,8 +45,8 @@ import numpy as np
 import torch
 
 from ulcx_torch._build import check as _check
+from ulcx_torch._build import kernel
 from ulcx_torch._build import launch as _launch
-from ulcx_torch._build import on_cpu as _on_cpu
 from ulcx_torch.ops.quant import sqrt_rn
 
 N_CAND = 8
@@ -563,10 +563,9 @@ def p3_materialize_plain(coef, ampn, hfamp, hfmeta, aux, state, hdr, n_words: in
 # --- wrappers ---------------------------------------------------------------
 
 
+@kernel(p1_plain)
 def p1(t, c, key, coef, aux):
     """Forward zone scan (replaces pallas_encode3._p1) -> s12 [P, B, 8]."""
-    if _on_cpu(t, c, key, coef, aux):
-        return p1_plain(t, c, key, coef, aux)
     n_pos, b = key.shape
     for name, x, dt, shp in (("t", t, _I32, (b, N_CAND)), ("c", c, _I32, (b, N_CAND)),
                              ("key", key, _I32, (n_pos, b)), ("coef", coef, torch.float32, (n_pos, b)),
@@ -575,14 +574,12 @@ def p1(t, c, key, coef, aux):
     s12 = torch.empty((n_pos, b, N_CAND), dtype=_I32, device=key.device)
     _launch("ulcx_p1", (t, c, key, coef, aux, s12), (b, n_pos, *_geometry_ints("p1", n_pos, b)),
             key.device)
-    p1.launches += 1
     return s12
 
 
+@kernel(p2_plain)
 def p2(t, c, key, thr, aux, s12):
     """Reverse backfill (replaces pallas_encode3._p2) -> state [P, B, 8]."""
-    if _on_cpu(t, c, key, thr, aux, s12):
-        return p2_plain(t, c, key, thr, aux, s12)
     n_pos, b = key.shape
     for name, x, dt, shp in (("t", t, _I32, (b, N_CAND)), ("c", c, _I32, (b, N_CAND)),
                              ("key", key, _I32, (n_pos, b)), ("thr", thr, _I32, (n_pos, b)),
@@ -592,15 +589,13 @@ def p2(t, c, key, thr, aux, s12):
     state = torch.empty((n_pos, b, N_CAND), dtype=_I32, device=key.device)
     _launch("ulcx_p2", (t, c, key, thr, aux, s12, state),
             (b, n_pos, *_geometry_ints("p2", n_pos, b)), key.device)
-    p2.launches += 1
     return state
 
 
+@kernel(p3_size_plain)
 def p3_size(thr, aux, state):
     """Size-only emission walk (replaces pallas_encode3._p3, size mode)
     -> bits [B, 8]."""
-    if _on_cpu(thr, aux, state):
-        return p3_size_plain(thr, aux, state)
     n_pos, b = aux.shape
     for name, x, dt, shp in (("thr", thr, _I32, (n_pos, b)), ("aux", aux, _I32, (n_pos, b)),
                              ("state", state, _I32, (n_pos, b, N_CAND))):
@@ -609,16 +604,14 @@ def p3_size(thr, aux, state):
     bits = torch.empty((b, N_CAND), dtype=_I32, device=aux.device)
     _launch("ulcx_p3_size", (thr, aux, state, bits),
             (b, n_pos, *_geometry_ints("p3_size", n_pos, b)), aux.device)
-    p3_size.launches += 1
     return bits
 
 
+@kernel(p3_materialize_plain)
 def p3_materialize(coef, ampn, hfamp, hfmeta, aux, state, hdr, n_words: int):
     """Materializing emission walk (replaces pallas_encode3._p3,
     materialize mode) -> (bits, words, freg, fwc); see
     ``p3_materialize_plain``."""
-    if _on_cpu(coef, ampn, hfamp, hfmeta, aux, state, hdr):
-        return p3_materialize_plain(coef, ampn, hfamp, hfmeta, aux, state, hdr, n_words)
     n_pos, b = aux.shape
     if n_pos % 2:
         raise ValueError(f"P must be even, got {n_pos}")
@@ -640,7 +633,6 @@ def p3_materialize(coef, ampn, hfamp, hfmeta, aux, state, hdr, n_words: int):
         (aux, state, coef, ampn, hfamp, hfmeta, hdr, bits, words, freg, fwc),
         (b, n_pos, n_words, *_geometry_ints("p3_materialize", n_pos, b)), dev,
     )
-    p3_materialize.launches += 1
     return bits, words, freg, fwc
 
 
@@ -666,11 +658,6 @@ def p3_materialize_gap_plain(coef, ampn, hfamp, hfmeta, aux, state, hdr, n_words
                        PLAIN_ENTRY_BYTES["p3_materialize"], 0)
 
 
-KERNELS = (p1, p2, p3_size, p3_materialize)
-for _fn in KERNELS:
-    _fn.launches = 0
-
-
 class Walks(NamedTuple):
     """One implementation of each walk, called alike."""
 
@@ -680,14 +667,5 @@ class Walks(NamedTuple):
     p3_materialize: Callable
 
 
-KERNEL_WALKS = Walks(*KERNELS)  # the kernels (a CPU tensor runs the plain version)
-PLAIN_WALKS = Walks(p1_plain, p2_plain, p3_size_plain, p3_materialize_plain)  # on any device
-
-
-def reset_launch_counts() -> None:
-    for fn in KERNELS:
-        fn.launches = 0
-
-
-def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+KERNEL_WALKS = Walks(p1, p2, p3_size, p3_materialize)  # a CPU tensor runs the plain versions
+PLAIN_WALKS = Walks(*(w.plain for w in KERNEL_WALKS))  # on any device

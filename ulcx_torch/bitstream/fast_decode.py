@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from ulcx_torch._build import kernels_on
 from ulcx_torch.bitstream import decode_kernels as dk
 from ulcx_torch.utils.config import CodecConfig
 from ulcx_torch.utils.profiling import span
@@ -61,13 +62,8 @@ def walks(cfg: CodecConfig) -> dk.Walks:
     """The walks ``cfg`` asks for: the kernels (whose wrappers run the
     plain versions on CPU tensors and launch the kernels on CUDA ones),
     or with ``use_pallas="off"`` the plain versions wherever the tensors
-    lie, launching no kernel."""
-    return walks_for(cfg.use_pallas)
-
-
-def walks_for(use_pallas: str) -> dk.Walks:
-    """``walks`` from the one setting it reads."""
-    return dk.PLAIN_WALKS if use_pallas == "off" else dk.KERNEL_WALKS
+    lie, launching no kernel (``_build.kernels_on``)."""
+    return dk.KERNEL_WALKS if kernels_on(cfg) else dk.PLAIN_WALKS
 
 
 def fsm_records(windows: torch.Tensor, cfg: CodecConfig):

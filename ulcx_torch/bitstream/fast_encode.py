@@ -51,6 +51,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ulcx_torch._build import kernels_on
 from ulcx_torch.analysis.block import AnalyzedBlock
 from ulcx_torch.bitstream import encode_kernels as ek
 from ulcx_torch.bitstream.tables import segment_tables
@@ -289,15 +290,16 @@ def walks(cfg: CodecConfig) -> ek.Walks:
     """The walks ``cfg`` asks for: the kernels (whose wrappers run the
     plain versions on CPU tensors and launch the kernels on CUDA ones),
     or with ``use_pallas="off"`` the plain versions wherever the tensors
-    lie, launching no kernel. With ``noise_run_window="gap"`` both p3
-    walks are the plain versions' gap mode, which take the planes' gap
-    prefix sums as two more arguments."""
-    return walks_for(cfg.use_pallas, cfg.noise_run_window)
+    lie, launching no kernel (``_build.kernels_on``), under ``cfg``'s
+    noise-run window (``window_walks``)."""
+    return window_walks(ek.KERNEL_WALKS if kernels_on(cfg) else ek.PLAIN_WALKS,
+                        cfg.noise_run_window)
 
 
-def walks_for(use_pallas: str, noise_run_window: str) -> ek.Walks:
-    """``walks`` from the two settings it reads."""
-    w = ek.PLAIN_WALKS if use_pallas == "off" else ek.KERNEL_WALKS
+def window_walks(w: ek.Walks, noise_run_window: str) -> ek.Walks:
+    """``w``, or with ``noise_run_window="gap"`` ``w`` with both p3 walks
+    in the plain versions' gap mode, which take the planes' gap prefix
+    sums as two more arguments."""
     if noise_run_window == "gap":
         w = w._replace(p3_size=ek.p3_size_gap_plain, p3_materialize=ek.p3_materialize_gap_plain)
     return w

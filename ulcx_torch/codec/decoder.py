@@ -250,7 +250,7 @@ def decode_block(window: torch.Tensor, carry: DecoderCarry, cfg: CodecConfig):
         with span("ulcx.decode.fsm_place"):
             records, consumed, corrupt = decode_block_tokens(tokens[:, 0], wc[0], cfg)
         with span("ulcx.decode.expand"):
-            flat, rng = expand_records(records, carry.rng, n * c, cfg.use_pallas)
+            flat, rng = expand_records(records, carry.rng, n * c, walks(cfg).rng_expand)
             coefs = torch.where(corrupt, 0.0, flat).reshape(c, n)
         pcm, lap, last_ss = block_imdct(coefs, wc[0], carry.lap, carry.prev_last_ss, cfg)
         with span("ulcx.decode.ms"):

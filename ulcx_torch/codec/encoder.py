@@ -29,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ulcx_torch._build import kernels_on
 from ulcx_torch.analysis.batched import analyze_block_batched, analyze_stream_batched
 from ulcx_torch.analysis.block import AnalyzedBlock, EncoderCarry, analyze_block
 from ulcx_torch.analysis.block import map_leaves as _map
@@ -98,7 +99,7 @@ def _use_kernel(cfg: CodecConfig, batch: int) -> bool:
     is no kernel plan ("on" with gap is refused by ``CodecConfig``).
     "off" always takes the scan path's plan. Whether the walks are the
     kernels or their plain versions is ``fast_encode.walks``'s choice."""
-    if cfg.use_pallas == "off":
+    if not kernels_on(cfg):
         return False
     p_tot = cfg.n_chan * cfg.block_size
     if p_tot > 32768 or cfg.noise_run_window != "segment":

@@ -12,42 +12,29 @@ table rather than branching on it.
 
 from __future__ import annotations
 
-from functools import lru_cache
-
-import numpy as np
 import torch
 
-from ulcx_torch.codec.transform_batched import block_imdct_batched, block_mdct_mdst_batched
-from ulcx_torch.ops.patterns import PATTERN_TABLE, pattern_subblock_sizes
-
-
-@lru_cache(maxsize=16)
-def _first_tables(device: torch.device):
-    """(shift, transient flag) of each pattern's first subblock."""
-    shift0 = np.array([PATTERN_TABLE[i] & 0x7 for i in range(16)], np.int32)
-    flag0 = np.array([(PATTERN_TABLE[i] >> 3) & 1 for i in range(16)], np.int32)
-    return torch.from_numpy(shift0).to(device), torch.from_numpy(flag0).to(device)
-
-
-@lru_cache(maxsize=16)
-def _last_sizes(block_size: int, device: torch.device):
-    sizes = [pattern_subblock_sizes(i or 1, block_size)[-1] for i in range(16)]
-    return torch.tensor(sizes, dtype=torch.int32, device=device)
+from ulcx_torch.codec.transform_batched import (
+    block_imdct_batched,
+    block_mdct_mdst_batched,
+    device_tables,
+    last_size_of,
+)
 
 
 def first_overlap(window_ctrl: torch.Tensor, block_size: int) -> torch.Tensor:
     """Overlap a block requests at its leading boundary (pre-clamp)."""
-    shift0, flag0 = _first_tables(window_ctrl.device)
+    t = device_tables(block_size, window_ctrl.device)
     pat = (window_ctrl >> 4).long()
     scale = window_ctrl & 0x7
-    sub = block_size >> shift0[pat]
-    return sub >> torch.where(flag0[pat] == 1, scale, torch.zeros_like(scale))
+    sub = block_size >> t["first_shift"][pat]
+    return sub >> torch.where(t["first_flag"][pat] == 1, scale, torch.zeros_like(scale))
 
 
 def last_subblock_size(window_ctrl: torch.Tensor, block_size: int) -> torch.Tensor:
     """Final subblock size of each block's pattern: what the next
     block's overlap clamp sees (reference ulcDecoder.c:233-239)."""
-    return _last_sizes(block_size, window_ctrl.device)[(window_ctrl >> 4).long()]
+    return last_size_of(window_ctrl, block_size)
 
 
 def _per_row(x, like: torch.Tensor) -> torch.Tensor:

@@ -25,8 +25,8 @@ import numpy as np
 import torch
 
 from ulcx_torch._build import check as _check
+from ulcx_torch._build import kernel, kernels_on
 from ulcx_torch._build import launch as _launch
-from ulcx_torch._build import on_cpu as _on_cpu
 from ulcx_torch.ops.dct import dct4_dst4
 from ulcx_torch.ops.mdct import imdct_expand, imdct_halfspec, mdct_fold, mdst_fold, rise_window
 from ulcx_torch.ops.patterns import (
@@ -106,7 +106,10 @@ def candidate_tables(block_size: int):
 def device_tables(block_size: int, device: torch.device):
     """``candidate_tables`` as tensors on ``device``, plus each
     candidate's class shift [15] and, per pattern, its first and last
-    active candidate [16] and each candidate's next active one [16, 15]."""
+    active candidate [16], each candidate's next active one [16, 15], and
+    int32 [16] its first subblock's shift and transient flag (pattern 0
+    as ulcx reads it: one long subblock, no flag) and its last
+    subblock's size."""
     with span("ulcx.build.device_tables"):
         t = {k: torch.from_numpy(v).to(device) for k, v in candidate_tables(block_size).items()}
         t["c_shift"] = torch.tensor([c for c, _ in candidate_list()], dtype=torch.int32, device=device)
@@ -114,6 +117,10 @@ def device_tables(block_size: int, device: torch.device):
         t["first"] = _first_active(t["act"], order)
         t["last"] = _last_active(t["act"], order)
         t["next"] = torch.stack([_next_active(t["act"], order, k) for k in range(order.numel())], 1)
+        t["first_shift"] = t["c_shift"][t["first"]]
+        t["first_flag"] = torch.tensor([pattern_transient_flags(p)[0] for p in range(16)],
+                                       dtype=torch.int32, device=device)
+        t["last_size"] = block_size >> t["c_shift"][t["last"]]
         return t
 
 
@@ -170,12 +177,20 @@ def block_mdct_mdst_batched(samples, window_ctrl, prev_last_ss, next_overlap, cf
             outs_s.append((-ms * norm).reshape(b, c, n))
             k += npos
 
-        # per coefficient, the class this stream's pattern uses
-        cls_map = device_tables(n, samples.device)["cls_coef"][(window_ctrl >> 4).long()]
-        idx = cls_map.long()[:, None, :, None].expand(b, c, n, 1)
-        mdct = torch.gather(torch.stack(outs_c, dim=-1), -1, idx)[..., 0]
-        mdst = torch.gather(torch.stack(outs_s, dim=-1), -1, idx)[..., 0]
-        return mdct, mdst
+        cls_coef = device_tables(n, samples.device)["cls_coef"][(window_ctrl >> 4).long()].long()
+        return select_class(outs_c, cls_coef), select_class(outs_s, cls_coef)
+
+
+def select_class(per_class, cls_coef):
+    """per_class: 4 tensors [B, ..., N]; cls_coef [B, N] (a row of
+    ``cls_coef`` per stream) -> [B, ..., N] taking class cls_coef at each
+    coefficient (the middle axes broadcast): one stack, one gather."""
+    stacked = torch.stack(per_class, dim=-1)
+    idx = cls_coef.long()
+    while idx.dim() < stacked.dim() - 1:
+        idx = idx[:, None]
+    idx = idx.expand(stacked.shape[:-1])[..., None]
+    return torch.gather(stacked, -1, idx)[..., 0]
 
 
 def _first_active(act, order):
@@ -200,8 +215,12 @@ def last_subblock_size(window_ctrl, cfg: CodecConfig) -> torch.Tensor:
     block's overlap sees (reference ulcDecoder.c:233-239). It depends on
     the window control alone, so a stream's lap chain can be laid out
     before its blocks are synthesized (``decoder.decode_stream_pipelined``)."""
-    t = device_tables(cfg.block_size, window_ctrl.device)
-    return (cfg.block_size >> t["c_shift"][t["last"][(window_ctrl >> 4).long()]]).to(torch.int32)
+    return last_size_of(window_ctrl, cfg.block_size)
+
+
+def last_size_of(window_ctrl, block_size: int) -> torch.Tensor:
+    """``last_subblock_size`` at block size ``block_size``."""
+    return device_tables(block_size, window_ctrl.device)["last_size"][(window_ctrl >> 4).long()]
 
 
 def block_imdct_batched(coefs, window_ctrl, lap, prev_last_ss, cfg: CodecConfig):
@@ -215,10 +234,8 @@ def block_imdct_batched(coefs, window_ctrl, lap, prev_last_ss, cfg: CodecConfig)
     ``imdct_lap_plain``."""
     with span("ulcx.decode.imdct"):
         args = (coefs.contiguous(), window_ctrl.contiguous(), lap.contiguous(),
-                prev_last_ss.contiguous())
-        if cfg.use_pallas == "off" or _on_cpu(*args):
-            return imdct_plain(*args, cfg.transform_for)
-        return imdct(*args)
+                prev_last_ss.contiguous(), cfg.transform_for)
+        return (imdct if kernels_on(cfg) else imdct.plain)(*args)
 
 
 def class_halfspecs(coefs, transform_for):
@@ -271,7 +288,7 @@ def imdct_lap_plain(v, window_ctrl, lap, prev_last_ss):
     ext[..., :n] += torch.where(live[:, None], pc, 0.0) * w_prev[:, None]
 
     last_k = t["last"][pat]  # [B]
-    last_ss = (n >> t["c_shift"][last_k]).to(torch.int32)
+    last_ss = t["last_size"][pat]
     is_last = last_k[:, None] == torch.arange(act.shape[1], device=dev)  # [B, 15]
     o_r = torch.clamp(o_l.gather(1, t["next"][pat]), max=(n >> t["c_shift"]))  # [B, 15]
 
@@ -379,16 +396,14 @@ def dct4_twiddles(block_size: int, device: torch.device) -> torch.Tensor:
         return torch.from_numpy(dct4_twiddle_table(block_size)).to(device)
 
 
-def imdct(coefs, window_ctrl, lap, prev_last_ss):
+@kernel(imdct_plain)
+def imdct(coefs, window_ctrl, lap, prev_last_ss, transform_for):
     """The inverse transform in one kernel (``csrc/imdct.cu``; it replaces
     no TPU kernel, but what ``imdct_plain`` computes in four DCT-IV
     products and some 300 tensor ops) -> (pcm, new_lap, last_ss); see
-    ``block_imdct_batched``. On CPU tensors it runs the plain version
-    with ``CodecConfig``'s default transforms; on CUDA tensors it checks
-    its arguments and launches the kernel, adding one to
-    ``imdct.launches``."""
-    if _on_cpu(coefs, window_ctrl, lap, prev_last_ss):
-        return imdct_plain(coefs, window_ctrl, lap, prev_last_ss, CodecConfig().transform_for)
+    ``block_imdct_batched``. On CPU tensors it runs ``imdct_plain`` with
+    the DCT-IV backends ``transform_for`` picks; the kernel takes its own
+    fast DCT-IV and does not read it."""
     b, c, n = coefs.shape
     g = imdct_geometry(b, c, n)
     _check("coefs", coefs, torch.float32, (b, c, n))
@@ -403,8 +418,4 @@ def imdct(coefs, window_ctrl, lap, prev_last_ss):
     _launch("ulcx_imdct",
             (coefs, lap, window_ctrl, prev_last_ss, tables, win, tw, pcm, new_lap, last_ss),
             (b, c, n, g["threads"], tables.numel(), win.numel(), tw.shape[0], g["shared"]), dev)
-    imdct.launches += 1
     return pcm, new_lap, last_ss
-
-
-imdct.launches = 0

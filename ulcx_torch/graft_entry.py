@@ -38,8 +38,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ulcx_torch.bitstream import decode_kernels as dk
-from ulcx_torch.bitstream import encode_kernels as ek
+from ulcx_torch._build import launch_counts, reset_launch_counts
+from ulcx_torch.bitstream.decode_kernels import Walks as DecodeWalks
+from ulcx_torch.bitstream.encode_kernels import Walks as EncodeWalks
 from ulcx_torch.codec.encoder import (
     encode_block_batched,
     init_carry_batched,
@@ -253,18 +254,18 @@ def _mesh_rank(inp: str, out_dir: str, device_type: str, runs: int) -> None:
         def encode(xs, **kw):
             return batch_encode(xs, cfg, "cbr", mesh=mesh, device=dev, rate_kbps=RATE_KBPS, **kw)
 
-        ek.reset_launch_counts()
+        reset_launch_counts()
         out, stats = encode(x)
-        enc_launches = ek.launch_counts()
+        enc_launches = launch_counts(*EncodeWalks._fields)
         major, _ = encode(x, scan_major=True)
         alone, _ = batch_encode(x[rows], cfg, "cbr", device=dev, rate_kbps=RATE_KBPS)
         sizes, data = gather_blocks(mesh, out)
         win = bench_window(sizes)
         streams = pack_streams(sizes, data, win)
-        dk.reset_launch_counts()
+        reset_launch_counts()
         pcm, bits, corrupt = batch_decode(streams, t, win, cfg, mesh=mesh, device=dev)
         res = {
-            "launches": np.array(json.dumps({**enc_launches, **dk.launch_counts()})),
+            "launches": np.array(json.dumps({**enc_launches, **launch_counts(*DecodeWalks._fields)})),
             "rows": np.array([rows.start, rows.stop]),
             **{k: v.cpu().numpy() for k, v in out._asdict().items()},
             "major_shape": np.array(major.size_bits.shape),

@@ -21,6 +21,7 @@ import time
 import numpy as np
 import torch
 
+from ulcx_torch._build import kernels_on
 from ulcx_torch.container import UlcHeader
 from ulcx_torch.io.wavio import WAVE_FORMAT_IEEE_FLOAT, WAVE_FORMAT_PCM, WavWriter
 from ulcx_torch.utils.config import CodecConfig
@@ -90,8 +91,7 @@ def main(argv=None, device="cuda") -> int:
     stream = on_device(np.concatenate([stream, np.zeros(window + 64, np.uint8)]), device)
     # ulcx's choice of decoder: the pipelined one where the kernels run
     # (a card, use_pallas not "off") and P <= 32768
-    pipelined = (stream.is_cuda and cfg.use_pallas != "off"
-                 and cfg.n_chan * cfg.block_size <= 32768)
+    pipelined = stream.is_cuda and kernels_on(cfg) and cfg.n_chan * cfg.block_size <= 32768
     decode = decode_stream_pipelined if pipelined else decode_stream
 
     wav = WavWriter(argv[2], hdr.rate_hz, hdr.n_chan, bits, tag)
